@@ -8,10 +8,14 @@ Phases, each printing one JSON line or more:
 
 1. device and build: the card, its power limit, the kernels' build time
    (one nvcc per source, all started together), the fp32 flags (no TF32);
-2. every kernel against its plain version: the NAP score on ragged, floored
-   and canonical shapes; the fused FC layer on a ragged shape with and
-   without BN and activation, every canonical layer shape at B in {10,
-   4096, 7000}, and whole canonical modules;
+2. every kernel against its plain version, each of its dispatch variants
+   (64 x 64 tiles for small batches, wide tiles for large ones) in fp32 and
+   bf16 at every batch of CHECK_B, with the variant the wrapper picks
+   marked: the NAP score on ragged, floored and canonical shapes and at the
+   train-and-score shape (K = J = 5482); the fused FC layer on a ragged
+   shape with and without BN and activation and at every canonical layer
+   shape (a bf16 layer's bf16 output must be its fp32 output rounded); and
+   whole canonical modules;
 3. golden replay: the checked-in model, NAP stats and fixture windows,
    scored through both kernels, against the frozen `nap_score` column;
 4. canonical-width serving: a seeded full-width model (Config() defaults),
@@ -24,8 +28,9 @@ Phases, each printing one JSON line or more:
    scores the NAP kernel; then the NAP kernel against its plain version on
    the stats `run` fitted and the valid and test diffs it scored;
 6. times on the card: each kernel beside its plain version, the product
-   alone (`matmul_ms`) and its bound, at the serving shapes and at the
-   train-and-score NAP shape; end-to-end request latency.
+   alone (`matmul_ms`) and its bound, with its TFLOP/s, at the serving
+   shapes and at the train-and-score NAP shape; every kernel's registers
+   (ptxas) and shared memory; end-to-end request latency.
 
 The counts of both kernels are set to 0 just before phases 4 and 5 drive
 their path and read just after.  The next-to-last line is {"kernels":
@@ -59,6 +64,12 @@ HBM_BYTES_PER_S = 3.35e12
 CANON_K, CANON_J = 5482, 4096
 CANON_B = (1, 10, 256, 4096)
 MLP_B = (10, 4096, 7000)
+#: phase 2's batches: both sides of every dispatch threshold, the main
+#: path's 2048 / 4096 / 7000 and the streaming 1 / 10
+CHECK_B = (1, 10, 64, 256, 2048, 4096, 7000)
+#: the train-and-score NAP shape (J = min(train rows, K)) and its batches
+RUN_NAP_K = RUN_NAP_J = 5482
+RUN_NAP_B = (2048, 4096)
 TIMED_RUNS = 25
 KERNEL_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-5),
               torch.bfloat16: dict(rtol=5e-3, atol=1e-5)}
@@ -69,6 +80,10 @@ MLP_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 MODULE_MEAN_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 #: phase 5: train / valid / test rows (one full batch of 7000 and a tail)
 TRAIN_ROWS, VALID_ROWS, TEST_ROWS = 8192, 2048, 4096
+
+
+#: phase 1's ptxas table, by library, for phase 6
+PTXAS: dict = {}
 
 
 def emit(**kw) -> None:
@@ -148,12 +163,15 @@ def random_bn_model(seed: int):
 def time_ms(fn, flush: torch.Tensor) -> float:
     """Median of TIMED_RUNS single-call CUDA-event times after warm-up; the
     50 MB L2 is overwritten before each call, so every call finds it cold
-    as a request does after the work before it."""
+    as a request does after the work before it.  The card then spins for
+    ~0.1 ms, so the host has queued the call before the start event
+    fires: the time is the device's, not the wrapper's."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(TIMED_RUNS):
         flush.zero_()
+        torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -215,6 +233,35 @@ def layer_inputs(model):
             for i in range(len(getattr(model, side).net))]
 
 
+def ptxas_table(log: str) -> dict:
+    """{kernel: {"registers", "static_smem", "spill_bytes"}} from nvcc's
+    -Xptxas -v output; a kernel is named by its function and its tile's
+    template integers (e.g. "fc_simt_kernel<8,8,4,1,1,4,2>")."""
+    import re
+
+    table, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d+([a-z_]+kernel)", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled) or (
+                ["bf16"] if "bfloat16" in mangled else
+                ["float"] if "IfE" in mangled else [])
+            name = ((base.group(1) if base else mangled)
+                    + (f"<{','.join(args)}>" if args else ""))
+            table[name] = {"spill_bytes": 0}
+        elif name and "spill stores" in ln:
+            table[name]["spill_bytes"] = int(re.search(
+                r"(\d+) bytes spill stores", ln).group(1))
+        elif name and "Used" in ln and "registers" in ln:
+            table[name]["registers"] = int(re.search(
+                r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            table[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return table
+
+
 def phase_device_and_build() -> str:
     from icra2021_multimodal_ad_tpu_torch.ops import _build
 
@@ -228,9 +275,8 @@ def phase_device_and_build() -> str:
     for name in ("nap_score", "fused_mlp"):
         _build.load(name)
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in info["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, info in built.items()}
+    ptxas = {name: ptxas_table(info["log"]) for name, info in built.items()}
+    PTXAS.update(ptxas)
     flags = {
         "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
@@ -245,59 +291,87 @@ def phase_device_and_build() -> str:
     return smi
 
 
-def nap_vs_plain() -> float:
+def variants_of(module, dtype):
+    """(narrow, wide) variant ids of a kernel module for one dtype."""
+    return tuple(module.VARIANTS[(dtype, wide)] for wide in (False, True))
+
+
+def nap_vs_plain(seen: set) -> float:
+    from icra2021_multimodal_ad_tpu_torch.ops import nap_kernel
     from icra2021_multimodal_ad_tpu_torch.ops.nap_kernel import (
         nap_pack,
         nap_score,
         nap_score_plain,
     )
 
-    cases = [("ragged", 33, 70, 70, False), ("floored", 33, 70, 70, True)]
-    cases += [("canonical", b, CANON_K, CANON_J, b == 256) for b in CANON_B]
+    shapes = [("ragged", 70, 70, False, (33,)),
+              ("floored", 70, 70, True, (33, 1300)),
+              ("canonical", CANON_K, CANON_J, False, CHECK_B),
+              ("canonical floored", CANON_K, CANON_J, True, (256, 4096)),
+              ("train_and_score shape", RUN_NAP_K, RUN_NAP_J, False,
+               RUN_NAP_B)]
     worst = 0.0
-    for name, b, k, j, floored in cases:
-        stats = random_stats(k, j, seed=b + k, floored=floored)
-        x = torch.tensor(np.random.default_rng(b).normal(size=(b, k)),
-                         dtype=torch.float32, device="cuda")
-        for dtype, tol in KERNEL_TOL.items():
-            pack = nap_pack(stats, dtype)
-            got = nap_score(pack, x)
-            torch.cuda.synchronize()
-            ref = nap_score_plain(pack, x)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            ok = bool(torch.allclose(got, ref, **tol))
-            emit(phase="kernel_vs_plain", kernel="nap_score", case=name,
-                 b=b, k=k, j=j, floored=floored, dtype=str(dtype),
-                 max_abs_err=err, tol=tol, ok=ok)
-            require(ok, f"nap_score {name} {dtype} B={b} disagrees "
-                        f"with its plain version (max abs err {err})")
-            worst = max(worst, err)
+    for name, k, j, floored, batches in shapes:
+        stats = random_stats(k, j, seed=k + j + floored, floored=floored)
+        packs = {dtype: nap_pack(stats, dtype) for dtype in KERNEL_TOL}
+        for b in batches:
+            x = torch.tensor(np.random.default_rng(b).normal(size=(b, k)),
+                             dtype=torch.float32, device="cuda")
+            for dtype, tol in KERNEL_TOL.items():
+                pack = packs[dtype]
+                ref = nap_score_plain(pack, x)
+                for variant in variants_of(nap_kernel, dtype):
+                    got = nap_score(pack, x, variant)
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    ok = bool(torch.allclose(got, ref, **tol))
+                    emit(phase="kernel_vs_plain", kernel="nap_score",
+                         case=name, b=b, k=k, j=j, floored=floored,
+                         dtype=str(dtype), variant=variant,
+                         dispatched=variant == nap_kernel.variant_for(dtype,
+                                                                      b),
+                         max_abs_err=err, tol=tol, ok=ok)
+                    require(ok, f"nap_score {name} {dtype} variant "
+                                f"{variant} B={b} disagrees with its plain "
+                                f"version (max abs err {err})")
+                    seen.add(("nap_score", variant))
+                    worst = max(worst, err)
     return worst
 
 
-def _check_layer(name, layer, x, tol) -> float:
+def _check_layer(name, layer, x, tol, seen: set) -> float:
+    from icra2021_multimodal_ad_tpu_torch.ops import mlp_kernel
     from icra2021_multimodal_ad_tpu_torch.ops.mlp_kernel import (
-        fused_mlp_layer,
+        fused_mlp_layer_pair,
         fused_mlp_layer_plain,
     )
 
-    got = fused_mlp_layer(layer, x)
-    torch.cuda.synchronize()
+    dtype, b = layer.w.dtype, x.shape[0]
     ref = fused_mlp_layer_plain(layer, x)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    ok = bool(torch.allclose(got, ref, **tol))
-    emit(phase="kernel_vs_plain", kernel="fused_mlp", case=name,
-         b=x.shape[0], k=x.shape[1], n=layer.w.shape[0],
-         dtype=str(layer.w.dtype), x_dtype=str(x.dtype), leaky=layer.leaky,
-         bn=layer.bn_mean is not None, max_abs_err=err, tol=tol, ok=ok)
-    require(ok, f"fused_mlp {name} {layer.w.dtype} B={x.shape[0]} disagrees "
-                f"with its plain version (max abs err {err})")
-    return err
+    worst = 0.0
+    for variant in variants_of(mlp_kernel, dtype):
+        got, got16 = fused_mlp_layer_pair(layer, x, variant)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ok = bool(torch.allclose(got, ref, **tol))
+        # the bf16 copy the next layer reads is the fp32 output rounded
+        ok16 = got16 is None or bool(torch.equal(got16, got.to(dtype)))
+        emit(phase="kernel_vs_plain", kernel="fused_mlp", case=name, b=b,
+             k=x.shape[1], n=layer.w.shape[0], dtype=str(dtype),
+             x_dtype=str(x.dtype), leaky=layer.leaky,
+             bn=layer.bn_mean is not None, variant=variant,
+             dispatched=variant == mlp_kernel.variant_for(dtype, b),
+             max_abs_err=err, tol=tol, ok=ok, bf16_copy_ok=ok16)
+        require(ok and ok16, f"fused_mlp {name} {dtype} variant {variant} "
+                             f"B={b} disagrees with its plain version (max "
+                             f"abs err {err}, bf16 copy ok {ok16})")
+        seen.add(("fused_mlp", variant))
+        worst = max(worst, err)
+    return worst
 
 
-def mlp_vs_plain() -> float:
+def mlp_vs_plain(seen: set) -> float:
+    from icra2021_multimodal_ad_tpu_torch.ops import _build
     from icra2021_multimodal_ad_tpu_torch.ops.mlp_kernel import (
         LayerPack,
         fused_mlp_layer_plain,
@@ -318,17 +392,18 @@ def mlp_vs_plain() -> float:
             for bn in (True, False):
                 vec = (lambda lo, hi: lo + (hi - lo) * rand(45))
                 layer = LayerPack(
-                    w=((rand(45, 70) * 2 - 1) / 70 ** 0.5).to(dtype),
+                    w=_build.operand((rand(45, 70) * 2 - 1) / 70 ** 0.5,
+                                     dtype),
                     b=(rand(45) * 2 - 1) / 70 ** 0.5, leaky=leaky,
                     bn_mean=vec(-0.1, 0.1) if bn else None,
                     bn_std=vec(0.7, 1.4) if bn else None,
                     bn_weight=vec(0.5, 1.5) if bn else None,
                     bn_beta=vec(-0.1, 0.1) if bn else None)
                 worst = max(worst, _check_layer("ragged", layer,
-                                                x_of(33, 70), tol))
-        # every canonical layer at the main path's batch sizes; a bf16
-        # layer reads the request in bf16 (first encoder layer) or the
-        # previous layer's fp32 output
+                                                x_of(33, 70), tol, seen))
+        # every canonical layer at every phase-2 batch; a bf16 layer reads
+        # the request in bf16 (first encoder layer) or the previous
+        # layer's fp32 output
         model = random_bn_model(seed=11)
         if dtype == torch.bfloat16:
             model = cast_floats(model, dtype)
@@ -336,12 +411,12 @@ def mlp_vs_plain() -> float:
                  for side in ("encoder", "decoder")}
         for name, side, i in layer_inputs(model):
             layer = packs[side].layers[i]
-            for b in MLP_B:
+            for b in CHECK_B:
                 x = x_of(b, layer.w.shape[1])
                 if dtype == torch.bfloat16 and name == "encoder.0":
                     x = x.to(dtype)
                 worst = max(worst, _check_layer(f"canonical {name}", layer,
-                                                x, tol))
+                                                x, tol, seen))
         # whole modules, kernel against a plain layer loop
         for side, pack in packs.items():
             x = x_of(4096, pack.layers[0].w.shape[1])
@@ -661,18 +736,27 @@ def phase_train_and_score():
     return (launches, *run_nap_vs_plain(cfg, res, valid_x, test_x))
 
 
+def tflops(ops: float, ms: float) -> float:
+    return ops / ms / 1e9
+
+
 def nap_times(pack, x, flush) -> dict:
-    """The NAP kernel's row of times at one (B, K, J) shape."""
+    """The NAP kernel's row of times at one (B, K, J) shape; `tflops` is
+    the product's 2BKJ over the kernel's time."""
     from icra2021_multimodal_ad_tpu_torch.ops.nap_kernel import (
         nap_score,
         nap_score_plain,
+        variant_for,
     )
 
+    b = int(x.shape[0])
     xd = x.to(pack.v.dtype)
     got, ref = nap_score(pack, x), nap_score_plain(pack, x)
-    bound_ms, bound_by = nap_bound(x.shape[0], pack.k, pack.j, pack.v.dtype)
-    return dict(b=int(x.shape[0]), k=pack.k, j=pack.j,
-                ms=time_ms(lambda: nap_score(pack, x), flush),
+    bound_ms, bound_by = nap_bound(b, pack.k, pack.j, pack.v.dtype)
+    ms = time_ms(lambda: nap_score(pack, x), flush)
+    return dict(b=b, k=pack.k, j=pack.j,
+                variant=variant_for(pack.v.dtype, b), ms=ms,
+                tflops=tflops(2 * b * pack.k * pack.j, ms),
                 plain_ms=time_ms(lambda: nap_score_plain(pack, x), flush),
                 matmul_ms=time_ms(lambda: torch.matmul(xd, pack.v), flush),
                 bound_ms=bound_ms, bound_by=bound_by,
@@ -681,11 +765,28 @@ def nap_times(pack, x, flush) -> dict:
                 library_ms=None)
 
 
+def kernel_resources() -> dict:
+    """Per kernel library: ptxas's registers, static shared memory and
+    spills of every compiled kernel, and the dynamic shared memory each
+    dispatch variant launches with."""
+    from icra2021_multimodal_ad_tpu_torch.ops import mlp_kernel, nap_kernel
+
+    smem = {"fused_mlp": mlp_kernel._lib().fused_mlp_smem_bytes,
+            "nap_score": nap_kernel._lib().nap_score_smem_bytes}
+    return {name: {"ptxas": PTXAS.get(name),
+                   "dynamic_smem_by_variant": {
+                       v: smem[name](v) for v in module.VARIANTS.values()}}
+            for name, module in (("fused_mlp", mlp_kernel),
+                                 ("nap_score", nap_kernel))}
+
+
 def phase_times(bundles, req_x, run_pack, run_cat):
     from icra2021_multimodal_ad_tpu_torch.ops.mlp_kernel import (
         fused_mlp_layer,
         fused_mlp_layer_plain,
+        variant_for,
     )
+    emit(phase="times", resources=kernel_resources())
     flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
                         device="cuda")
     # the train-and-score path's NAP: fp32, the test diffs on the fitted
@@ -720,10 +821,11 @@ def phase_times(bundles, req_x, run_pack, run_cat):
                       else (lambda: torch.mm(xd, wt,
                                              out_dtype=torch.float32)))
                 bound_ms, bound_by = mlp_bound(layer, x)
+                ms = time_ms(lambda: fused_mlp_layer(layer, x), flush)
                 row = dict(dtype=name, layer=lname, b=b, k=k, n=n,
                            x_dtype=str(x.dtype),
-                           ms=time_ms(lambda: fused_mlp_layer(layer, x),
-                                      flush),
+                           variant=variant_for(dtype, b), ms=ms,
+                           tflops=tflops(2 * b * k * n, ms),
                            plain_ms=time_ms(
                                lambda: fused_mlp_layer_plain(layer, x),
                                flush),
@@ -751,7 +853,8 @@ def phase_times(bundles, req_x, run_pack, run_cat):
             {(r["dtype"], r["layer"], r["b"]): r for r in mlp_rows})
 
 
-TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "matmul_ms")
+TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "matmul_ms", "tflops",
+             "variant")
 
 
 def kernel_entry(name, source, replaces, launches, worst, head, shape,
@@ -774,8 +877,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    from icra2021_multimodal_ad_tpu_torch.ops import mlp_kernel, nap_kernel
+
     phase_device_and_build()
-    worst = {"nap_score": nap_vs_plain(), "fused_mlp": mlp_vs_plain()}
+    seen: set = set()
+    worst = {"nap_score": nap_vs_plain(seen), "fused_mlp": mlp_vs_plain(seen)}
+    every = {(name, v) for name, module in (("nap_score", nap_kernel),
+                                            ("fused_mlp", mlp_kernel))
+             for v in module.VARIANTS.values()}
+    require(seen == every, f"phase 2 checked {sorted(seen)}, not every "
+                           f"variant {sorted(every)}")
     phase_golden()
     bundles, req_x, serving_launches = phase_canonical()
     run_launches, run_err, run_pack, run_cat = phase_train_and_score()

@@ -3,9 +3,14 @@
 Each `csrc/<name>.cu` exposes a plain `extern "C"` interface.  It is compiled
 at first use by `nvcc` for `sm_90a` into a shared library under
 `build/torch_kernels/` at the repository root and loaded with `ctypes`.  The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  Nothing here runs at
-import time: the CPU tests import every module on a host without `nvcc`.
+library's file name carries a hash of its source, of every shared header
+`csrc/*.cuh` and of the compiler flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  Nothing here runs at import
+time: the CPU tests import every module on a host without `nvcc`.
+
+Every kernel operand and output is a row-major matrix whose rows start on
+16-byte boundaries (16-byte copies and TMA need it): `padded_empty` and
+`operand` lay tensors out so, padding each row stride where it must.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -39,9 +46,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, dict]:
@@ -80,3 +89,24 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def padded_empty(rows: int, cols: int, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """An uninitialised (rows, cols) tensor whose row stride is a multiple
+    of 16 bytes."""
+    per = 16 // dtype.itemsize
+    return torch.empty_strided((rows, cols), (-(-cols // per) * per, 1),
+                               dtype=dtype, device=device)
+
+
+def operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """2-D x as a kernel reads it: `dtype`, unit column stride, 16-byte
+    aligned rows.  x itself where it is so already, else a padded copy.
+    The kernels read no column past the last, so the padding stays
+    unwritten."""
+    if (x.dtype == dtype and x.stride(1) == 1
+            and x.stride(0) % (16 // dtype.itemsize) == 0
+            and x.data_ptr() % 16 == 0):
+        return x
+    return padded_empty(*x.shape, dtype, x.device).copy_(x)

@@ -8,15 +8,24 @@ Per layer of an eval-mode FC module, in fp32 accumulation:
 with LeakyReLU(0.2) or identity as `act` and `std = sqrt(running_var +
 eps)`.  Replaces the TPU kernel `_make_mlp_kernel` (icra2021_multimodal_ad_tpu/
 ops/pallas_kernels.py, entry `fused_module_forward`).  The CUDA source is
-`csrc/fused_mlp.cu`; its header note gives the design and the bound on the
-H100.  The kernel runs one layer per launch, and `module_forward_taps` loops
-over a module's layers.  `fused_mlp_layer` launches the kernel for CUDA
-tensors and takes `fused_mlp_layer_plain` only for CPU tensors;
-`fused_mlp_layer.launches` counts the kernel launches.
+`csrc/fused_mlp.cu` on the shared mainloop of `csrc/sm90_gemm.cuh`; their
+header notes give the design and the bound on the H100.  The kernel runs one
+layer per launch, and `module_forward_taps` loops over a module's layers.
+`fused_mlp_layer` launches the kernel for CUDA tensors and takes
+`fused_mlp_layer_plain` only for CPU tensors; `fused_mlp_layer.launches`
+counts the kernel launches, every variant included.
 
-Unlike the TPU kernel, the BN affine is not folded (see the source note),
-and a bf16 pack takes the previous layer's fp32 output and rounds it to bf16
-on load, so every layer's fp32 output (the RaPP tap) comes for free.
+Each launch picks one of four variants by type and batch (`variant_for`):
+fp32 on the CUDA cores or bf16 on the tensor cores, 64 x 64 tiles at small
+batches or 128 x 128 tiles at large ones.  Operand rows are padded to 16
+bytes, as TMA and 16-byte copies need: `mlp_pack` pads the weights once,
+and every output is allocated padded, so only a module's first input may
+need a copy.
+
+Unlike the TPU kernel, the BN affine is not folded (see the source note).
+A bf16 layer writes its fp32 output (the RaPP tap) and that output rounded
+to bf16, which the next bf16 layer reads: the arithmetic of rounding the
+fp32 input on load.
 """
 
 from __future__ import annotations
@@ -36,11 +45,24 @@ from icra2021_multimodal_ad_tpu_torch.ops import _build
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
+#: the variants of csrc/fused_mlp.cu, by (dtype, wide tiles)
+VARIANTS = {(torch.float32, False): 0, (torch.float32, True): 1,
+            (torch.bfloat16, False): 2, (torch.bfloat16, True): 3}
+#: batches from which the 128 x 128 tiles run, by dtype (below, 64 x 64):
+#: where they measured faster on the H100 (PERF.md, PR 3)
+WIDE_MIN_B = {torch.float32: 4096, torch.bfloat16: 4096}
+
+
+def variant_for(dtype: torch.dtype, b: int) -> int:
+    """The kernel variant that a (b, K) input of a `dtype` layer launches."""
+    return VARIANTS[(dtype, b >= WIDE_MIN_B[dtype])]
+
 
 class LayerPack(NamedTuple):
     """One layer's kernel operands; the BN vectors are None without BN."""
 
-    w: torch.Tensor                    # (N, K), contiguous, kernel dtype
+    w: torch.Tensor                    # (N, K), kernel dtype, rows
+    #                                    padded to 16 bytes
     b: torch.Tensor                    # (N,) fp32
     leaky: bool                        # LeakyReLU(0.2) or identity
     bn_mean: Optional[torch.Tensor]    # (N,) fp32 running mean
@@ -57,8 +79,9 @@ class MlpPack(NamedTuple):
 @torch.no_grad()
 def mlp_pack(module: FCModule, dtype: torch.dtype = torch.float32) -> MlpPack:
     """Lay out each eval-mode layer's operands once, on the module's device:
-    views of the weights (a cast where `dtype` differs from theirs) and one
-    sqrt per BN layer.  Refuses activations the kernel does not implement."""
+    the weights in `dtype` with rows padded to 16 bytes, the vectors in fp32
+    and one sqrt per BN layer.  Refuses activations the kernel does not
+    implement."""
     if dtype not in _KERNEL_DTYPES:
         raise ValueError(f"fused MLP kernel dtype must be one of "
                          f"{_KERNEL_DTYPES}, got {dtype}")
@@ -71,7 +94,7 @@ def mlp_pack(module: FCModule, dtype: torch.dtype = torch.float32) -> MlpPack:
                 f"for other registry activations")
         bn = fc.bn
         layers.append(LayerPack(
-            w=fc.layer.weight.detach().to(dtype).contiguous(),
+            w=_build.operand(fc.layer.weight.detach(), dtype),
             b=fc.layer.bias.detach().float().contiguous(),
             leaky=fc.act == "leakyrelu",
             bn_mean=None if bn is None else bn.running_mean.float(),
@@ -95,32 +118,44 @@ def fused_mlp_layer_plain(layer: LayerPack, x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int,
+              ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp")
-    if lib.fused_mlp_f32.argtypes is None:
-        for fn in (lib.fused_mlp_f32, lib.fused_mlp_f32_bf16,
-                   lib.fused_mlp_bf16):
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
+    if lib.fused_mlp.argtypes is None:
+        lib.fused_mlp.argtypes = _ARGTYPES
+        lib.fused_mlp.restype = ctypes.c_int
+        lib.fused_mlp_smem_bytes.argtypes = [ctypes.c_int]
+        lib.fused_mlp_smem_bytes.restype = ctypes.c_int
         lib.fused_mlp_error_string.argtypes = [ctypes.c_int]
         lib.fused_mlp_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def fused_mlp_layer(layer: LayerPack, x: torch.Tensor) -> torch.Tensor:
+def fused_mlp_layer(layer: LayerPack, x: torch.Tensor,
+                    variant: Optional[int] = None) -> torch.Tensor:
     """One eval-mode layer of (B, K) inputs -> (B, N) fp32 outputs.
 
     x may be fp32 or the pack's dtype; a bf16 pack rounds fp32 x to bf16.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    (`variant`, default `variant_for`) or raises."""
+    return fused_mlp_layer_pair(layer, x, variant)[0]
+
+
+def fused_mlp_layer_pair(layer: LayerPack, x: torch.Tensor,
+                         variant: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(fp32 output, its bf16 rounding or None): a bf16 layer on the card
+    also returns its output rounded to bf16, laid out for the next layer;
+    fp32 layers and the plain version return None beside the output."""
     n, k = layer.w.shape
     if x.dim() != 2 or x.shape[1] != k:
         raise ValueError(f"x must be (B, {k}), got {tuple(x.shape)}")
     if x.device.type == "cpu":
-        return fused_mlp_layer_plain(layer, x)
+        return fused_mlp_layer_plain(layer, x), None
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_layer runs on cpu or cuda, not "
                          f"{x.device}")
@@ -129,29 +164,34 @@ def fused_mlp_layer(layer: LayerPack, x: torch.Tensor) -> torch.Tensor:
     for t in (t for t in operands if t is not None):
         if t.device != x.device:
             raise ValueError(f"layer pack is on {t.device}, x on {x.device}")
-    lib = _lib()
-    if layer.w.dtype == torch.float32:
-        xd, fn = x.float().contiguous(), lib.fused_mlp_f32
-    elif x.dtype == torch.bfloat16:
-        xd, fn = x.contiguous(), lib.fused_mlp_bf16
-    else:
-        xd, fn = x.float().contiguous(), lib.fused_mlp_f32_bf16
-    b = xd.shape[0]
-    out = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    dtype = layer.w.dtype
+    b = x.shape[0]
+    if variant is None:
+        variant = variant_for(dtype, b)
+    elif variant not in (VARIANTS[(dtype, False)], VARIANTS[(dtype, True)]):
+        raise ValueError(f"variant {variant} does not take {dtype} weights")
+    xd = _build.operand(x, dtype)
+    out = _build.padded_empty(b, n, torch.float32, x.device)
+    out16 = (None if dtype == torch.float32
+             else _build.padded_empty(b, n, dtype, x.device))
     if b == 0:
-        return out
+        return out, out16
+    lib = _lib()
     bn = ([None] * 4 if layer.bn_mean is None else
           [t.data_ptr() for t in (layer.bn_mean, layer.bn_std,
                                   layer.bn_weight, layer.bn_beta)])
     with torch.cuda.device(x.device):  # the launch goes to the current device
-        err = fn(xd.data_ptr(), layer.w.data_ptr(), layer.b.data_ptr(), *bn,
-                 out.data_ptr(), b, k, n, int(layer.leaky),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        err = lib.fused_mlp(
+            variant, xd.data_ptr(), xd.stride(0), layer.w.data_ptr(),
+            layer.w.stride(0), layer.b.data_ptr(), *bn, out.data_ptr(),
+            out.stride(0), None if out16 is None else out16.data_ptr(),
+            0 if out16 is None else out16.stride(0), b, k, n,
+            int(layer.leaky), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("fused_mlp kernel launch failed: "
                            + lib.fused_mlp_error_string(err).decode())
     fused_mlp_layer.launches += 1
-    return out
+    return out, out16
 
 
 fused_mlp_layer.launches = 0
@@ -161,12 +201,14 @@ def module_forward_taps(pack: MlpPack, x: torch.Tensor
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """(taps, stream): every layer's fp32 output, taps[-1] the module
     output, and the stream, the module output in the pack's dtype (what the
-    next module reads)."""
+    next module reads).  On the card a bf16 layer hands the next one its
+    bf16 output, so only the module's input may be cast."""
     taps = []
     y = x
     for layer in pack.layers:
-        y = fused_mlp_layer(layer, y)
-        taps.append(y)
+        out, out16 = fused_mlp_layer_pair(layer, y)
+        taps.append(out)
+        y = out if out16 is None else out16
     return taps, y.to(pack.dtype)
 
 

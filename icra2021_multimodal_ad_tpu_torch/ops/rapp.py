@@ -43,10 +43,12 @@ def diffs_batch(model: AutoEncoder, x: torch.Tensor,
     if pack is None:
         pack = ae_pack(model)
     x = x.reshape(x.shape[0], -1)
-    taps_x, _ = module_forward_taps(pack.encoder, x)
-    z = vib_mu(taps_x[-1], pack.distribution)
-    x_hat = module_forward_taps(pack.decoder, z)[0][-1]
-    taps_xhat, _ = module_forward_taps(pack.encoder, x_hat)
+    # each module reads the one before in the pack's dtype (its stream)
+    taps_x, z = module_forward_taps(pack.encoder, x)
+    taps_dec, x_hat_stream = module_forward_taps(
+        pack.decoder, vib_mu(z, pack.distribution))
+    x_hat = taps_dec[-1]
+    taps_xhat, _ = module_forward_taps(pack.encoder, x_hat_stream)
     diffs = [x_hat - x.float()]
     diffs += [h2 - h1 for h1, h2 in zip(taps_x, taps_xhat)]
     return tuple(diffs)

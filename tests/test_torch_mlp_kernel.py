@@ -144,3 +144,71 @@ def test_fused_mlp_rejects_unsupported_activation():
     module = FCModule(16, 8, [12], act="tanh", device="cpu")
     with pytest.raises(NotImplementedError, match="tanh"):
         mlp_pack(module)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side", ["encoder", "decoder"])
+def test_padded_pack_gives_the_unpadded_taps(models, side, dtype):
+    """Rows padded to 16 bytes change no tap: the pack's weights are views
+    of the same values, and the plain version reads them as they are."""
+    *_, model = models
+    module = getattr(cast_floats(model, dtype) if dtype == torch.bfloat16
+                     else model, side)
+    pack = mlp_pack(module, dtype)
+    per = 16 // torch.tensor([], dtype=dtype).element_size()
+    for layer, fc in zip(pack.layers, module.net):
+        assert layer.w.dtype == dtype and layer.w.stride(0) % per == 0
+        assert torch.equal(layer.w, fc.layer.weight.detach().to(dtype))
+    dense = pack._replace(layers=tuple(
+        lp._replace(w=lp.w.contiguous()) for lp in pack.layers))
+    x = torch.from_numpy(_x(19, module.net[0].layer.in_features, seed=6))
+    taps, stream = module_forward_taps(pack, x)
+    taps_d, stream_d = module_forward_taps(dense, x)
+    for a, b in zip(taps, taps_d):
+        assert torch.equal(a, b)
+    assert torch.equal(stream, stream_d) and stream.dtype == dtype
+
+
+def test_bf16_dual_output_gives_the_taps_of_rounding_on_load(models,
+                                                             monkeypatch):
+    """On the card a bf16 layer returns its fp32 output and that output
+    rounded to bf16, and module_forward_taps hands the bf16 copy on: the
+    taps equal those of the plain version, which rounds on load."""
+    from icra2021_multimodal_ad_tpu_torch.ops import _build, mlp_kernel
+
+    *_, model = models
+    pack = mlp_pack(cast_floats(model, torch.bfloat16).encoder,
+                    torch.bfloat16)
+    x = torch.from_numpy(_x(23, 48, seed=7))
+    ref_taps, ref_stream = module_forward_taps(pack, x)
+    seen = []
+
+    def card(layer, y, variant=None):
+        # what the bf16 variants return: the fp32 tap and its rounding, both
+        # in padded rows; the input must already be the kernel's operand
+        seen.append(y.dtype)
+        out = fused_mlp_layer_plain(layer, y)
+        out16 = _build.padded_empty(*out.shape, torch.bfloat16, "cpu")
+        return out, out16.copy_(out)
+
+    monkeypatch.setattr(mlp_kernel, "fused_mlp_layer_pair", card)
+    taps, stream = module_forward_taps(pack, x)
+    assert seen == [torch.float32] + [torch.bfloat16] * (len(taps) - 1)
+    for a, b in zip(taps, ref_taps):
+        assert torch.equal(a, b)
+    assert torch.equal(stream, ref_stream) and stream.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_variant_for_takes_wide_tiles_from_the_threshold(dtype):
+    from icra2021_multimodal_ad_tpu_torch.ops import mlp_kernel, nap_kernel
+
+    for module in (mlp_kernel, nap_kernel):
+        narrow = module.VARIANTS[(dtype, False)]
+        wide = module.VARIANTS[(dtype, True)]
+        edge = module.WIDE_MIN_B[dtype]
+        assert narrow != wide
+        assert [module.variant_for(dtype, b) for b in (1, edge - 1, edge,
+                                                        7000)] == [
+            narrow, narrow, wide, wide]
+    assert len(set(mlp_kernel.VARIANTS.values())) == 4

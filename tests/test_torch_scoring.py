@@ -100,21 +100,45 @@ def test_plain_nap_score_matches_jax_device_and_pallas(floor):
         **NAP_TOL)
 
 
-def test_bf16_pack_rounds_operands_and_accumulates_in_fp32():
+def _round_bf16(a: np.ndarray) -> np.ndarray:
+    """fp32 -> bf16 -> fp32 with round to nearest even, in numpy."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    bits = (bits + (0x7FFF + ((bits >> 16) & 1))) & 0xFFFF0000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_bf16_pack_rounds_operands_and_accumulates_in_fp32(x_dtype):
+    """A bf16 pack rounds x to bf16, centres it in fp32 and multiplies both
+    bf16 halves of the result (xc to 16 bits) by the bf16 rotation with fp32
+    accumulation: the arithmetic of bf16(x) - mu without folding mu @ V."""
     stats = _to_port(jnap_fit(jnp.asarray(_train(seed=4))))
-    x = torch.from_numpy(_query(seed=5))
+    x = torch.from_numpy(_query(seed=5)).to(x_dtype)
     pack = nap_pack(stats, torch.bfloat16)
-    assert pack.v.dtype == torch.bfloat16 and pack.v.is_contiguous()
+    # V^T, K-major, rows padded from 70 to 72 bf16 (16 bytes) with zeros
+    assert pack.vt.dtype == torch.bfloat16 and pack.vt.shape == (70, 70)
+    assert pack.vt.stride() == (72, 1) and pack.v.shape == (70, 70)
+    assert torch.equal(pack.v, stats.rotater.v.to(torch.bfloat16))
     assert pack.inv_std.dtype == torch.float32
-    xd = x.to(torch.bfloat16).double()
-    rot = (xd - pack.mu.double()) @ pack.v.double()
-    t = (rot - pack.std_mu.double()) * pack.inv_std.double()
+    xc = (_round_bf16(x.float().numpy()) - pack.mu.numpy()).astype(np.float32)
+    hi = _round_bf16(xc)
+    lo = _round_bf16((xc - hi).astype(np.float32))
+    rot = (hi.astype(np.float64) + lo) @ pack.v.double().numpy()
+    t = (rot - pack.std_mu.double().numpy()) * pack.inv_std.double().numpy()
     np.testing.assert_allclose(nap_score_plain(pack, x).numpy(),
-                               (t * t).mean(-1).numpy(), rtol=1e-5)
+                               (t * t).mean(-1), rtol=1e-5)
     with pytest.raises(ValueError, match="dtype"):
         nap_pack(stats, torch.float16)
     with pytest.raises(ValueError, match=r"\(B, 70\)"):
         nap_score(pack, x[:, :69])
+
+
+def test_round_bf16_reference_is_torch_rounding():
+    a = np.random.default_rng(9).normal(size=4096).astype(np.float32)
+    a[:4] = [1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8), 0.0]  # ties
+    np.testing.assert_array_equal(
+        _round_bf16(a),
+        torch.from_numpy(a).to(torch.bfloat16).float().numpy())
 
 
 def test_nap_stats_npz_round_trip_both_ways(tmp_path):
