@@ -18,6 +18,9 @@ Phases, each printing one JSON line or more:
    whole canonical modules;
 3. golden replay: the checked-in model, NAP stats and fixture windows,
    scored through both kernels, against the frozen `nap_score` column;
+   then, on these degenerate stats, each bf16 NAP variant must sit
+   LO_MARGIN times closer to its plain version than to the same arithmetic
+   without the lo half of the centred rows (`lo_half_check`);
 4. canonical-width serving: a seeded full-width model (Config() defaults),
    NAP fitted on 4096 windows, fp32 and bf16 bundles answering BASE, SAP and
    NAP requests; every request must launch the FC kernel, every NAP request
@@ -26,7 +29,8 @@ Phases, each printing one JSON line or more:
    Config() defaults (3 epochs) on seeded windows with a planted anomaly;
    the validation and test passes must launch the FC kernel and the NAP
    scores the NAP kernel; then the NAP kernel against its plain version on
-   the stats `run` fitted and the valid and test diffs it scored;
+   the stats `run` fitted and the valid and test diffs it scored, and the
+   lo-half check on those stats;
 6. times on the card: each kernel beside its plain version, the product
    alone (`matmul_ms`) and its bound, with its TFLOP/s, at the serving
    shapes and at the train-and-score NAP shape; every kernel's registers
@@ -78,6 +82,9 @@ MLP_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 #: whole-module mean relative error, kernel against plain: summation order
 #: may flip a bf16 rounding of a next-layer input
 MODULE_MEAN_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+#: bf16 NAP on degenerate stats: how many times closer to its plain
+#: version the kernel must sit than to the plain version without lo
+LO_MARGIN = 10.0
 #: phase 5: train / valid / test rows (one full batch of 7000 and a tail)
 TRAIN_ROWS, VALID_ROWS, TEST_ROWS = 8192, 2048, 4096
 
@@ -163,15 +170,12 @@ def random_bn_model(seed: int):
 def time_ms(fn, flush: torch.Tensor) -> float:
     """Median of TIMED_RUNS single-call CUDA-event times after warm-up; the
     50 MB L2 is overwritten before each call, so every call finds it cold
-    as a request does after the work before it.  The card then spins for
-    ~0.1 ms, so the host has queued the call before the start event
-    fires: the time is the device's, not the wrapper's."""
+    as a request does after the work before it."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(TIMED_RUNS):
         flush.zero_()
-        torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -339,6 +343,45 @@ def nap_vs_plain(seen: set) -> float:
     return worst
 
 
+def nap_plain_hi_only(pack, x: torch.Tensor) -> torch.Tensor:
+    """`nap_score_plain` of a bf16 pack with the lo half left out: the
+    centred rows rounded once to bf16, hi alone against V."""
+    bf16 = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    rot = bf16(bf16(x.float()) - pack.mu) @ pack.v.float()
+    t = (rot - pack.std_mu) * pack.inv_std
+    return (t * t).sum(dim=-1) / pack.j
+
+
+def lo_half_check(case: str, stats, x: torch.Tensor) -> None:
+    """Both bf16 NAP variants on whitening stats that amplify rounding
+    (smallest variance ~1e-13), where leaving out the lo half of the
+    centred rows moves the scores far more than summation order does: each
+    must sit LO_MARGIN times closer, in max relative error, to its plain
+    version (hi + lo) than to the hi-only arithmetic."""
+    from icra2021_multimodal_ad_tpu_torch.ops import nap_kernel
+    from icra2021_multimodal_ad_tpu_torch.ops.nap_kernel import (
+        nap_pack,
+        nap_score,
+        nap_score_plain,
+    )
+
+    pack = nap_pack(stats, torch.bfloat16)
+    hi_lo, hi = nap_score_plain(pack, x), nap_plain_hi_only(pack, x)
+    rel = lambda a, b: float(((a - b).abs() / b.abs()).max())  # noqa: E731
+    for variant in variants_of(nap_kernel, torch.bfloat16):
+        got = nap_score(pack, x, variant)
+        to_hi_lo, to_hi = rel(got, hi_lo), rel(got, hi)
+        emit(phase="lo_half", case=case, b=int(x.shape[0]), k=pack.k,
+             j=pack.j, variant=variant,
+             min_var=float(stats.standardizer.var.min()),
+             kernel_vs_hi_lo_max_rel=to_hi_lo,
+             kernel_vs_hi_only_max_rel=to_hi, margin=LO_MARGIN)
+        require(to_hi > 0 and to_hi_lo * LO_MARGIN < to_hi,
+                f"bf16 nap_score variant {variant} on {case}: max rel "
+                f"{to_hi_lo} from hi + lo, {to_hi} from hi alone; the lo "
+                f"half is not seen")
+
+
 def _check_layer(name, layer, x, tol, seen: set) -> float:
     from icra2021_multimodal_ad_tpu_torch.ops import mlp_kernel
     from icra2021_multimodal_ad_tpu_torch.ops.mlp_kernel import (
@@ -478,6 +521,7 @@ def phase_golden() -> None:
             f"golden NAP max rel err {rel} above rtol 2e-3")
     require(bool(torch.isfinite(s16).all()) and corr > 0.99,
             f"bf16 golden Pearson {corr} not above 0.99")
+    lo_half_check("golden", stats.to("cuda"), serving.nap_diffs(x))
 
 
 def phase_canonical():
@@ -647,6 +691,7 @@ def run_nap_vs_plain(cfg, res, valid_x, test_x):
                            f"plain version (max abs err {row['max_abs_err']})")
     require(checks[-1]["equals_report"],
             "the NAP kernel's test scores differ from run()'s NAP report")
+    lo_half_check("train_and_score test", stats, cat)
     return worst, npack, cat
 
 

@@ -209,11 +209,6 @@ cudaError_t center(const float* x, int ldx, const float* mu, void* xc,
 }
 
 template <class T>
-int tile_j() {
-  return T::WARP_N;
-}
-
-template <class T>
 cudaError_t product_simt(const void* xc, int ldxc, const void* vt, int ldv,
                          const NapOut& p, int K, cudaStream_t stream) {
   static cudaError_t attr = sm90::allow_smem(nap_simt_kernel<T>,
@@ -256,8 +251,8 @@ int nap_score_xc_cols(int variant, int K) {
 // 0 for an unknown variant.
 int nap_score_tile_j(int variant) {
   switch (variant) {
-    case 0: return tile_j<NapNarrow>();
-    case 1: return tile_j<NapWide>();
+    case 0: return NapNarrow::WARP_N;
+    case 1: return NapWide::WARP_N;
     case 2: return NapNarrow16::BN;
     case 3: return NapWide16::BN;
     default: return 0;

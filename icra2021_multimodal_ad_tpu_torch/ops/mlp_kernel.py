@@ -48,14 +48,15 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: the variants of csrc/fused_mlp.cu, by (dtype, wide tiles)
 VARIANTS = {(torch.float32, False): 0, (torch.float32, True): 1,
             (torch.bfloat16, False): 2, (torch.bfloat16, True): 3}
-#: batches from which the 128 x 128 tiles run, by dtype (below, 64 x 64):
-#: where they measured faster on the H100 (PERF.md, PR 3)
-WIDE_MIN_B = {torch.float32: 4096, torch.bfloat16: 4096}
+#: the batch from which the 128 x 128 tiles run in both types (below,
+#: 64 x 64): where they measured faster on the H100 (PERF.md §6,
+#: scripts/torch_kernel_variants.py)
+WIDE_MIN_B = 4096
 
 
 def variant_for(dtype: torch.dtype, b: int) -> int:
     """The kernel variant that a (b, K) input of a `dtype` layer launches."""
-    return VARIANTS[(dtype, b >= WIDE_MIN_B[dtype])]
+    return VARIANTS[(dtype, b >= WIDE_MIN_B)]
 
 
 class LayerPack(NamedTuple):

@@ -37,15 +37,15 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: the variants of csrc/nap_score.cu, by (dtype, wide tiles)
 VARIANTS = {(torch.float32, False): 0, (torch.float32, True): 1,
             (torch.bfloat16, False): 2, (torch.bfloat16, True): 3}
-#: batches from which the wide tiles run (128 x 128 fp32, 128 x 256 bf16),
-#: by dtype (below, 64 x 64): where they measured faster on the H100
-WIDE_MIN_B = {torch.float32: 1024, torch.bfloat16: 1024}
+#: the batch from which the wide tiles run in both types (128 x 128 fp32,
+#: 128 x 256 bf16; below, 64 x 64): where they measured faster on the H100
+WIDE_MIN_B = 1024
 
 
 def variant_for(dtype: torch.dtype, b: int) -> int:
     """The kernel variant that a batch of b rows on a `dtype` pack
     launches."""
-    return VARIANTS[(dtype, b >= WIDE_MIN_B[dtype])]
+    return VARIANTS[(dtype, b >= WIDE_MIN_B)]
 
 
 class NapPack(NamedTuple):

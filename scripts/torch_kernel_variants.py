@@ -9,8 +9,8 @@ For each variant (64 x 64 tiles, wide tiles; fp32 and bf16) of
 `fused_mlp` at the first canonical layer (1728 -> 1402) and of `nap_score`
 at the canonical serving shape (K = 5482, J = 4096) and the train-and-score
 shape (J = 5482), at B in {10, 64, 256, 1024, 2048, 4096, 7000}: one JSON
-line with the time (`chip_smoke.time_ms`: CUDA events, median of 25, L2
-flushed, host overhead kept out), the product's TFLOP/s, whether the
+line with the time (`torch_kernel_ab.device_ms`: CUDA events, median of
+25, L2 flushed, host overhead kept out), the product's TFLOP/s, whether the
 wrapper dispatches that variant at that batch, and the max abs error
 against the plain version.  Weights, inputs and whitening stats are random
 from fixed seeds.  Needs one NVIDIA card.
@@ -36,6 +36,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    from torch_kernel_ab import device_ms
     from icra2021_multimodal_ad_tpu_torch.models.builder import get_model
     from icra2021_multimodal_ad_tpu_torch.ops import mlp_kernel, nap_kernel
     from icra2021_multimodal_ad_tpu_torch.ops.serving import cast_floats
@@ -67,7 +68,7 @@ def main() -> int:
             ref = mlp_kernel.fused_mlp_layer_plain(layer, x)
             for variant in cs.variants_of(mlp_kernel, dtype):
                 got = mlp_kernel.fused_mlp_layer(layer, x, variant)
-                ms = cs.time_ms(
+                ms = device_ms(
                     lambda: mlp_kernel.fused_mlp_layer(layer, x, variant),
                     flush)
                 row("fused_mlp", variant, dtype, b, k, n, ms,
@@ -85,7 +86,7 @@ def main() -> int:
                 ref = nap_kernel.nap_score_plain(pack, x)
                 for variant in cs.variants_of(nap_kernel, dtype):
                     got = nap_kernel.nap_score(pack, x, variant)
-                    ms = cs.time_ms(
+                    ms = device_ms(
                         lambda: nap_kernel.nap_score(pack, x, variant),
                         flush)
                     row("nap_score", variant, dtype, b, cs.CANON_K, j, ms,

@@ -206,7 +206,7 @@ def test_variant_for_takes_wide_tiles_from_the_threshold(dtype):
     for module in (mlp_kernel, nap_kernel):
         narrow = module.VARIANTS[(dtype, False)]
         wide = module.VARIANTS[(dtype, True)]
-        edge = module.WIDE_MIN_B[dtype]
+        edge = module.WIDE_MIN_B
         assert narrow != wide
         assert [module.variant_for(dtype, b) for b in (1, edge - 1, edge,
                                                         7000)] == [
