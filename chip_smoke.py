@@ -24,8 +24,9 @@ Phases, each printing one JSON line or more:
    its plain version at K = 5482, J = 400 and 4096, floored and not, and on
    the golden stats and windows; both beside variant 0 in `device_ms` and
    `time_ms` with their bounds (a module's is its layers' sum; NAP also its
-   chain's latency floor), registers and spills: each must be faster than
-   variant 0 at every B <= SMALL_MAX_B and spill nothing;
+   chain's latency floor and its plain version's `device_ms`), registers
+   and spills: each must be faster than variant 0 at every B <=
+   SMALL_MAX_B and spill nothing;
 3. golden replay: the checked-in model, NAP stats and fixture windows,
    scored through both kernels, against the frozen `nap_score` column;
    then, on these degenerate stats, each bf16 NAP variant must sit
@@ -124,7 +125,14 @@ Phases, each printing one JSON line or more:
    on loopback in fp32, bf16 and bf16 + int8 (both guarded): ragged
    requests of 1, 10, 33 and 1000 rows of every op against the in-process
    bundle, sensor ops, `native/score_client.cpp` built with g++, round
-   trips at B = 10 and 1024; (d) raw episodes in the legacy schema through
+   trips at B = 10 and 1024; every request a CUDA graph replay per chunk
+   (`ops/serving.ServingPrograms`): each (op, bucket) that the requests,
+   the warm-up and the sensor request reached, captured against the eager
+   server (`_score_eager`, `_score_sensor_op_eager`) bit for bit; one graph
+   launch per chunk and no kernel launch from the host (torch.profiler);
+   capture ms per program, the programs' device and pinned memory and the
+   warm-up's seconds captured and eager; round-trip p50, eager (A) against
+   captured (B), A B B A with the `info` round trip as the control; (d) raw episodes in the legacy schema through
    `concatdata_maker.main --variant legacy` and `--variant frames`, read
    back with the rows the CSVs give; (e) the int8 whitening's device time
    beside the fp32 and bf16 NAP kernels' at K = 5482, J = 4096;
@@ -156,7 +164,9 @@ host without CUDA.  It imports no JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
+import gc
 import io
 import json
 import os
@@ -289,6 +299,8 @@ SERVER_RUNS = {"float32": [],
 #: the H100 80GB HBM3 at 700 W)
 F64_NAP_MAX_REL = 2e-3
 SERVER_ROWS = (1, 10, 33, 1000)
+#: 11c: the round trips' rows, captured (B) against eager (A)
+RTT_ROWS = (10, 1024)
 #: the server's in-process tolerances (tests/test_score_server.py:60-84)
 SERVER_TOL = {"score_base": 1e-5, "score_sap": 1e-5, "score_nap": 1e-3}
 LEGACY_EPISODES, LEGACY_SECONDS, LEGACY_MIC = 3, 5.0, 8
@@ -300,15 +312,18 @@ PNG_PROBE_EXPECTED = os.path.join(ROOT, "datasets", "png_resize",
 
 
 #: phase 2b: the batches and NAP widths of the small-batch variants' check
-#: (the tick's 10, both sides of SMALL_MAX_B and the kernels' largest, 64),
+#: (the tick's 10, the score server's buckets 1, 16 and 32, both sides of
+#: SMALL_MAX_B and the kernels' largest, 64),
 #: and the latency of one dependent fp32 FMA in cycles, for the NAP chain's
 #: floor
-SMALL_B = (1, 10, 32, 33, 64)
+SMALL_B = (1, 10, 16, 32, 33, 64)
 SMALL_NAP_J = (400, 4096)
 FMA_LATENCY = 4
 
 #: phase 1's ptxas table, by library, for phase 6
 PTXAS: dict = {}
+#: the host clock when this module was loaded, for the profiles' ages
+STARTED = time.perf_counter()
 
 
 def emit(**kw) -> None:
@@ -886,6 +901,8 @@ def phase_small_batches(smi: str) -> dict:
             old = nap_times(pack, x, flush, 0)
             times[("nap_score_small", j, b)] = dict(
                 variant0_ms=old["ms"], variant0_device_ms=old["device_ms"],
+                plain_device_ms=device_ms(lambda: nap_score_plain(pack, x),
+                                          flush),
                 chain_floor_ms=floor, **nap_times(pack, x, flush, 4))
     resources = {name: {k: v for k, v in (PTXAS.get(lib) or {}).items()
                         if k.startswith(kern)}
@@ -2005,14 +2022,20 @@ OUR_KERNELS = ("fc_module_kernel", "fc_simt_kernel", "fc_wgmma_kernel",
 
 
 def profile_calls(fn, calls: int = 10) -> dict:
-    """Three warm calls, then `calls` calls under the port's
+    """Three warm calls, then `calls` counted calls under the port's
     `utils/profiling.trace` (torch.profiler; the Chrome trace lands in
-    build/chip_smoke/trace/), each ending in a synchronize: host ms per
-    call, device events per call (kernels and copies), the graph launches
-    and kernel launches the host made per call (CUDA API calls), the
-    host's launches and copies the profiler has no device event for
-    (lost), the device's busy share (the union of the events' intervals
-    over the calls) and the device ms of the busiest kernels."""
+    build/chip_smoke/trace/), each ending in a synchronize, after one call
+    in the window that is not counted: the profiler drops device events of
+    a window's first launches now and then, even with its pad (PERF.md §6,
+    PR 11).  Of the counted calls: host ms per call, device events per
+    call (kernels and copies), the graph launches and kernel launches the
+    host made per call (CUDA API calls), the host's launches and copies
+    the profiler has no device event for (lost) and the calls they belong
+    to, the least and the largest time from a launch on the host to its
+    first device event (negative where the profiler moved the card's
+    clock early), the process's age, the device's busy share (the union of
+    the events' intervals over the calls) and the device ms of the
+    busiest kernels."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -2023,19 +2046,36 @@ def profile_calls(fn, calls: int = 10) -> dict:
         fn()
     torch.cuda.synchronize()
     with trace(os.path.join(RUN_DIR, "trace"), device=DEV) as prof:
+        fn()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    api = [e for e in prof.events()
-           if e.device_type == DeviceType.CPU and e.name.startswith("cu")]
+    api = sorted((e for e in prof.events() if e.device_type == DeviceType.CPU
+                  and e.name.startswith("cu")),
+                 key=lambda e: e.time_range.start)
+    launches = [e for e in api if "Launch" in e.name or "Memcpy" in e.name]
+    # every call makes the same launches: the first per_call are the
+    # uncounted call's, and its device events carry their correlation ids
+    per_call = len(launches) // (calls + 1)
+    skipped = {e.id for e in launches[:per_call]}
+    if per_call:
+        api = [e for e in api
+               if e.time_range.start >= launches[per_call].time_range.start]
+        launches = launches[per_call:]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and e.id not in skipped]
     host = [e.name for e in api]
     # a launch or copy's device events carry its correlation id
-    ids = {e.id for e in events}
-    lost = sum(e.id not in ids for e in api
-               if "Launch" in e.name or "Memcpy" in e.name)
+    first = {}
+    for e in events:
+        first[e.id] = min(e.time_range.start,
+                          first.get(e.id, e.time_range.start))
+    lost = sum(e.id not in first for e in launches)
+    lead_us = [first[e.id] - e.time_range.start for e in launches
+               if e.id in first]
     by_name = defaultdict(float)
     for e in events:
         by_name[e.name] += e.time_range.end - e.time_range.start
@@ -2051,6 +2091,12 @@ def profile_calls(fn, calls: int = 10) -> dict:
                 for n in host) / calls,
             "device_events_per_call": len(events) / calls,
             "device_events_lost": lost,
+            "device_events_lost_in_calls": sorted(
+                {i // max(per_call, 1) for i, e in enumerate(launches)
+                 if e.id not in first}),
+            "launch_to_device_ms": ([min(lead_us) / 1e3, max(lead_us) / 1e3]
+                                    if lead_us else None),
+            "process_s": time.perf_counter() - STARTED,
             "device_busy_ms_per_call": busy / calls / 1e3,
             "device_busy_share": busy / wall_us if events else None,
             "top_device_ms_per_call": {n[:80]: t / calls / 1e3
@@ -2917,12 +2963,178 @@ def server_kernels_vs_plain(name: str, server, x: np.ndarray, sensor,
     return worst
 
 
+@contextlib.contextmanager
+def eager_server():
+    """Inside the block every ScoreServer scores through its eager path
+    (`_score_eager`, `_score_sensor_op_eager`): the A side of 11c's round
+    trips."""
+    from icra2021_multimodal_ad_tpu_torch.ops.score_server import ScoreServer
+
+    captured = ScoreServer._score, ScoreServer._score_sensor_op
+    ScoreServer._score = ScoreServer._score_eager
+    ScoreServer._score_sensor_op = ScoreServer._score_sensor_op_eager
+    try:
+        yield
+    finally:
+        ScoreServer._score, ScoreServer._score_sensor_op = captured
+
+
+def server_round_trips(name: str, client, x: np.ndarray, smi: str) -> dict:
+    """11c: the round trip's p50 of TIMED_RUNS `score_nap` requests at
+    each of RTT_ROWS, eager (A) against captured (B), A B B A on one
+    connection, with the `info` request's round trip (no device work, the
+    same in A and B) as the control.  Returns per metric the runs of A and
+    B and mean(B) / mean(A)."""
+    rows = {"A": [], "B": []}
+    for label in "ABBA":
+        with eager_server() if label == "A" else contextlib.nullcontext():
+            row = {f"score_nap_{b}_p50_ms": percentiles_ms(
+                lambda: client.score(x[:b], op="score_nap"),
+                TIMED_RUNS)["p50_ms"] for b in RTT_ROWS}
+            row["control_info_p50_ms"] = percentiles_ms(
+                client.info, TIMED_RUNS)["p50_ms"]
+        rows[label].append(row)
+        emit(phase="server_round_trip_ab", run=name, label=label, **row,
+             card=smi)
+    summary = {}
+    for k in rows["A"][0]:
+        a, b = ([r[k] for r in rows[side]] for side in "AB")
+        summary[k] = {"A": a, "B": b,
+                      "B_over_A": statistics.mean(b) / statistics.mean(a)}
+    return summary
+
+
+def server_captured_vs_eager(name: str, server, x: np.ndarray, sensor,
+                             smi: str) -> None:
+    """11c: every (op, bucket) that the run's requests (SERVER_ROWS and
+    RTT_ROWS), its warm-up (zero probes at buckets 1 and max_batch) and
+    its sensor request reached, through the server's programs against its
+    eager path: bit for bit (the zero sensor probes score NaN, compared
+    by their bits)."""
+    cap = server.max_batch
+    probe = np.zeros((cap, x.shape[1]), np.float32)
+    zeros = (np.zeros((cap, 3, 32, 32), np.uint8),
+             np.zeros((cap, 1, 32, 32), np.uint8),
+             np.zeros((cap, 1), np.float32), np.zeros((cap, 1, 13),
+                                                       np.float32))
+    cases = {}
+    for op in SERVER_TOL:
+        requests = [(f"{n} rows", x[:n])
+                    for n in sorted(set(SERVER_ROWS + RTT_ROWS))]
+        for label, rows in requests + [("warm-up 1", probe[:1]),
+                                       (f"warm-up {cap}", probe)]:
+            cases[f"{op} {label}"] = (server._score(op, rows),
+                                      server._score_eager(op, rows))
+    for op in server.SENSOR_OPS:
+        for label, payload in (("request", sensor),
+                               ("warm-up 1", [a[:1] for a in zeros]),
+                               (f"warm-up {cap}", zeros)):
+            cases[f"{op} {label}"] = (
+                server._score_sensor_op(op, *payload),
+                server._score_sensor_op_eager(op, *payload))
+    differ = [k for k, (a, b) in cases.items() if a.tobytes() != b.tobytes()]
+    emit(phase="server_captured_vs_eager", run=name, cases=len(cases),
+         bit_identical=not differ, differ=differ, card=smi)
+    require(not differ, f"{name} server: the programs' scores differ from "
+                        f"the eager server's at {differ}")
+
+
+def server_launches(name: str, server, x: np.ndarray, sensor,
+                    smi: str) -> None:
+    """11c: under torch.profiler, a served chunk is one graph launch and no
+    kernel launch from the host, with no launch or copy lost: `score_nap`
+    at 10 and 1024 rows, `score_nap_sensor` on the sensor request, and
+    `score_base` on 1000 rows with max_batch set to 512 (two chunks, two
+    replays); the eager request's launches beside them."""
+    cases = {"score_nap 10 rows": (lambda: server._score(
+                 "score_nap", x[:10]), 1),
+             "score_nap 1024 rows": (lambda: server._score(
+                 "score_nap", x[:1024]), 1),
+             "score_nap_sensor request": (lambda: server._score_sensor_op(
+                 "score_nap_sensor", *sensor), 1),
+             "score_base 1000 rows, max_batch 512": (lambda: server._score(
+                 "score_base", x[:1000]), 2)}
+    profiles = {}
+    cap = server.max_batch
+    for case, (fn, chunks) in cases.items():
+        server.max_batch = 512 if "max_batch 512" in case else cap
+        try:
+            profiles[case] = profile_calls(fn)
+        finally:
+            server.max_batch = cap
+    eager = profile_calls(lambda: server._score_eager("score_nap", x[:10]))
+    emit(phase="server_launches", run=name, captured=profiles,
+         eager_score_nap_10_rows=eager, card=smi)
+    for case, prof in [*profiles.items(), ("eager", eager)]:
+        require(prof["device_events_lost"] == 0,
+                f"{name} server {case}: the profiler has no device event "
+                f"for {prof['device_events_lost']} launches and copies")
+    for case, (_, chunks) in cases.items():
+        got = profiles[case]
+        require(got["graph_launches_per_call"] == chunks
+                and got["host_kernel_launches_per_call"] == 0,
+                f"{name} server {case}: {got['graph_launches_per_call']} "
+                f"graph launches and {got['host_kernel_launches_per_call']}"
+                f" kernel launches from the host per request, want {chunks}"
+                f" and 0")
+
+
+def server_programs_held(server) -> dict:
+    """11c: what warm-up costs and holds at the run's max_batch: a copy of
+    the server with no programs warms up (captures), then another one
+    eagerly, each on the host clock; the device memory the captured
+    programs hold (reserved, after `empty_cache`, against before) and
+    their pinned staging and outputs."""
+    from icra2021_multimodal_ad_tpu_torch.ops.serving import ServingPrograms
+
+    def fresh():
+        copied = copy.copy(server)
+        copied.programs = ServingPrograms(server.serving)
+        return copied
+
+    def warm_s(s) -> float:
+        t0 = time.perf_counter()
+        s.warmup()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    warm = fresh()
+    captured_s = warm_s(warm)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - before
+    programs = warm.programs.programs.values()
+    pinned = sum(t.nbytes for p in programs for t in [
+        *(t for slot in p._staging for t in slot),
+        *(o for o in p._outputs if o is not None)])
+    n_programs = len(programs)
+    del warm, programs
+    eager = fresh()
+    eager._score, eager._score_sensor_op = (eager._score_eager,
+                                            eager._score_sensor_op_eager)
+    eager_s = warm_s(eager)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_batch": server.max_batch, "programs": n_programs,
+            "warmup_captured_s": captured_s, "warmup_eager_s": eager_s,
+            "device_reserved_mib": held / 2 ** 20,
+            "pinned_host_mib": pinned / 2 ** 20}
+
+
 def server_on_card(smi: str, det):
     """11c: `serve.main` on loopback in fp32, bf16 behind its guard and
     bf16 + int8 behind its guard: ragged requests of every op against the
     in-process bundle, each kernel against its plain version at the
     server's padded inputs, the native C++ client, sensor ops, round
-    trips.  Returns the path's launches and the kernels' worst abs errs."""
+    trips (captured against eager, A B B A); then each run's programs
+    against its eager path, its launches per request under the profiler,
+    capture ms, memory and warm-up seconds.  Returns the path's launches
+    (the eager side of the round trips not counted) and the kernels' worst
+    abs errs."""
     from icra2021_multimodal_ad_tpu_torch import serve
     from icra2021_multimodal_ad_tpu_torch.ops.mlp_kernel import (
         fused_mlp_layer,
@@ -2930,12 +3142,13 @@ def server_on_card(smi: str, det):
     from icra2021_multimodal_ad_tpu_torch.ops.nap_kernel import nap_score
     from icra2021_multimodal_ad_tpu_torch.ops.score_server import ScoreClient
     from icra2021_multimodal_ad_tpu_torch.ops.serving import int8_product
+    from icra2021_multimodal_ad_tpu_torch.utils import graphs
 
     cfg = det[0]
     exe = build_native_client()
     rng = np.random.default_rng(11)
-    x = rng.uniform(0, 1, (max(SERVER_ROWS), cfg.input_size)).astype(
-        np.float32)
+    x = rng.uniform(0, 1, (max(SERVER_ROWS + RTT_ROWS),
+                           cfg.input_size)).astype(np.float32)
     sensor = (rng.integers(0, 256, (10, 3, 32, 32), dtype=np.uint8),
               rng.integers(0, 256, (10, 1, 32, 32), dtype=np.uint8),
               rng.uniform(0, 400, (10, 1)).astype(np.float32),
@@ -2964,17 +3177,20 @@ def server_on_card(smi: str, det):
                                   ("score_base_sensor", "score_sap_sensor",
                                    "score_nap_sensor")}
                     rtt = {}
-                    for b in (10, 1024):
+                    for b in RTT_ROWS:
                         times = []
                         for _ in range(TIMED_RUNS):
                             t1 = time.perf_counter()
                             c.score(x[:b], op="score_nap")
                             times.append((time.perf_counter() - t1) * 1e3)
                         rtt[b] = statistics.median(times)
-                native = subprocess.run(
-                    [exe, "127.0.0.1", str(port), "score_nap", "33",
-                     str(cfg.input_size)], input=x[:33].tobytes(),
-                    capture_output=True, timeout=120)
+                    native = subprocess.run(
+                        [exe, "127.0.0.1", str(port), "score_nap", "33",
+                         str(cfg.input_size)], input=x[:33].tobytes(),
+                        capture_output=True, timeout=120)
+                    # the eager side's launches are not the path's
+                    rtt_ab, _ = graphs.recorded(
+                        lambda: server_round_trips(name, c, x, smi))
             finally:
                 stop.set()
                 thread.join(timeout=120)
@@ -2982,7 +3198,8 @@ def server_on_card(smi: str, det):
         require(native.returncode == 0, f"{name}: native client "
                                         f"{native.stderr[-500:]}")
         runs[name] = dict(server=box["server"], info=info, got=got,
-                          got_sensor=got_sensor, rtt=rtt, up_s=up_s,
+                          got_sensor=got_sensor, rtt=rtt, rtt_ab=rtt_ab,
+                          up_s=up_s,
                           native=np.frombuffer(native.stdout, "<f4"),
                           log=log.getvalue())
     launches = read_counts()
@@ -3012,6 +3229,13 @@ def server_on_card(smi: str, det):
                                        / np.abs(w.cpu().numpy())))
                       for op, w in sensor_want.items()}
         guard = re.search(r"rel err ([0-9.]+) <= tol ([0-9.]+)", r["log"])
+        server = r["server"]
+        server_captured_vs_eager(name, server, x, sensor, smi)
+        server_launches(name, server, x, sensor, smi)
+        capture_ms = {f"{op} {inputs[0][0]}": sec * 1e3 for (op, inputs), sec
+                      in server.programs.capture_s.items()}
+        emit(phase="server_programs", run=name, capture_ms=capture_ms,
+             startup_s=r["up_s"], **server_programs_held(server), card=smi)
         emit(phase="score_server", run=name, flags=SERVER_RUNS[name],
              info={k: r["info"][k] for k in ("compute_dtype", "nap_quant",
                                              "guard_rel_err", "max_batch")},
@@ -3020,7 +3244,8 @@ def server_on_card(smi: str, det):
              sensor_max_rel=sensor_rel,
              native_equal=bool(np.array_equal(r["native"],
                                               r["got"][("score_nap", 33)])),
-             round_trip_p50_ms=r["rtt"], guard_line=guard and guard.group(0),
+             round_trip_p50_ms=r["rtt"], round_trip_ab=r["rtt_ab"],
+             guard_line=guard and guard.group(0),
              card=smi)
         for key, v in rel.items():
             require(v <= SERVER_TOL[key.split("/")[0]],
@@ -3682,8 +3907,9 @@ def phase_sharded(smi: str):
 
 TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
              "matmul_ms", "tflops", "variant")
-#: the small-batch variants' rows also carry variant 0's times
-SMALL_KEYS = ("variant0_ms", "variant0_device_ms")
+#: the small-batch variants' rows also carry variant 0's times (and the NAP
+#: rows the plain version's device time)
+SMALL_KEYS = ("variant0_ms", "variant0_device_ms", "plain_device_ms")
 
 
 SHAPE_KEYS = ("b", "k", "j", "n", "layer", "dtype", "path")

@@ -22,6 +22,13 @@ Design points:
     alone.  In JAX the buckets bound the compiles; here they keep the same
     contract, and a padded batch may take another kernel variant than its
     unpadded rows would.
+  * **One program per request**: on the card every (op, bucket, payload
+    shapes) is one CUDA graph (`ops/serving.ServingPrograms`), captured at
+    its first request or by warmup(), as JAX compiles one program per
+    bucket: a chunk of a request is one replay, its rows staged in pinned
+    memory and its scores copied back inside the graph.  The eager path
+    (`_score_eager`, `_score_sensor_op_eager`) is the reference the
+    programs are held against, bit for bit.
   * **One card, one scorer**: device work runs under the score lock, on
     the current stream, and the scores reach the host before the lock is
     released; the accept loop is threaded, so slow clients do not block
@@ -112,8 +119,9 @@ class _Pending:
 
 
 class ScoreServer:
-    """Serve a ServingModel's three window scorers over TCP (loopback by
-    default) from `device`, the card unless the caller asks for the CPU.
+    """Serve a ServingModel's window and sensor scorers over TCP (loopback
+    by default) from `device`, the card unless the caller asks for the
+    CPU, each request through the bundle's captured programs.
     start() binds, spawns the accept thread, and returns the port; stop()
     shuts it down.  Thread-safe for many clients; device work is
     serialized (one card)."""
@@ -133,7 +141,10 @@ class ScoreServer:
                  max_batch: int = 16384, host: str = "127.0.0.1",
                  batching: bool = True, device="cuda"):
         from icra2021_multimodal_ad_tpu_torch.ops.fusion import fusion_init
-        from icra2021_multimodal_ad_tpu_torch.ops.serving import make_serving
+        from icra2021_multimodal_ad_tpu_torch.ops.serving import (
+            ServingPrograms,
+            make_serving,
+        )
         from icra2021_multimodal_ad_tpu_torch.utils.device import (
             resolve_device,
         )
@@ -148,6 +159,7 @@ class ScoreServer:
             fusion_params = fusion_init(config.seed, dev)
         self.serving = make_serving(config, model, nap_stats=nap_stats,
                                     fusion_params=fusion_params, device=dev)
+        self.programs = ServingPrograms(self.serving)
         self.max_batch = int(max_batch)
         self.host = host
         self.batching = bool(batching)
@@ -202,48 +214,70 @@ class ScoreServer:
         return torch.from_numpy(np.require(a, requirements="CW")).to(
             self.serving.device)
 
-    def _score(self, op: str, x: np.ndarray) -> np.ndarray:
+    def _chunked(self, x: np.ndarray, score_chunk) -> np.ndarray:
+        """score_chunk(rows, bucket) on each max_batch chunk of x's rows,
+        under the score lock: requests larger than max_batch score in
+        max_batch chunks, each padded to its bucket."""
         n = x.shape[0]
         out = np.empty(n, np.float32)
-        done = 0
-        # requests larger than max_batch score in max_batch chunks, each
-        # padded to its bucket
-        while done < n:
-            take = min(n - done, self.max_batch)
-            xb = np.zeros((_next_bucket(take, self.max_batch),
-                           x.shape[1]), np.float32)
-            xb[:take] = x[done:done + take]
+        for done in range(0, n, self.max_batch):
+            rows = x[done:done + self.max_batch]
             with self._score_lock:
-                xd = self._to_device(xb)
-                if op == "score_base":
-                    s = self.serving.score_fused(xd)
-                elif op == "score_sap":
-                    s = self.serving.score_sap_windows(xd)
-                else:
-                    s = self.serving.score_nap_windows(xd)
-                # on the host before the lock goes: the next call may not
-                # overlap this one's work on the card
-                out[done:done + take] = s.cpu().numpy()[:take]
-            done += take
+                out[done:done + len(rows)] = score_chunk(
+                    rows, _next_bucket(len(rows), self.max_batch))
         return out
+
+    def _score(self, op: str, x: np.ndarray) -> np.ndarray:
+        """Scores of fused windows: one replay of (op, bucket)'s program
+        per chunk, finished and its scores on the host before the lock
+        goes (the next replay overwrites them)."""
+        return self._chunked(x, lambda rows, bucket: self.programs.score(
+            op, bucket, np.asarray(rows, np.float32)))
+
+    def _score_eager(self, op: str, x: np.ndarray) -> np.ndarray:
+        """`_score` op by op, without a program: the reference."""
+        from icra2021_multimodal_ad_tpu_torch.ops.serving import SERVED_OPS
+
+        def score_chunk(rows, bucket):
+            xb = np.zeros((bucket, x.shape[1]), np.float32)
+            xb[:len(rows)] = rows
+            s = SERVED_OPS[op][0](self.serving, self._to_device(xb))
+            # on the host before the lock goes: the next call may not
+            # overlap this one's work on the card
+            return s.cpu().numpy()[:len(rows)]
+
+        return self._chunked(x, score_chunk)
 
     #: wire dtypes of the sensor-op payload segments, in payload order
     _SENSOR_FIELDS = (("r", np.uint8, 4), ("d", np.uint8, 4),
                       ("t", "<f4", 2), ("m", "<f4", 3))
 
-    def _score_sensor_op(self, op: str, r: np.ndarray, d: np.ndarray,
-                         t: np.ndarray, m: np.ndarray) -> np.ndarray:
-        """Score one raw-sensor request.  Pad rows to the bucket by EDGE
-        REPLICATION: the mic normalization is batch-global min-max
-        (ops/fusion.normalize_mods), so zero rows would shift the range
-        and perturb real rows' scores; replicated real rows cannot."""
-        n = r.shape[0]
+    def _sensor_bucket(self, n: int) -> int:
         if n > self.max_batch:
             raise ValueError(
                 f"sensor requests are capped at max_batch={self.max_batch} "
                 f"rows (got {n}): a request is the normalization window — "
                 "chunk client-side to choose the windows explicitly")
-        bucket = _next_bucket(n, self.max_batch)
+        return _next_bucket(n, self.max_batch)
+
+    def _score_sensor_op(self, op: str, r: np.ndarray, d: np.ndarray,
+                         t: np.ndarray, m: np.ndarray) -> np.ndarray:
+        """Score one raw-sensor request by one replay of (op, bucket,
+        payload shapes)'s program.  Pad rows to the bucket by EDGE
+        REPLICATION: the mic normalization is batch-global min-max
+        (ops/fusion.normalize_mods), so zero rows would shift the range
+        and perturb real rows' scores; replicated real rows cannot."""
+        bucket = self._sensor_bucket(r.shape[0])
+        with self._score_lock:
+            return self.programs.score(op, bucket, r, d, t, m)
+
+    def _score_sensor_op_eager(self, op: str, r: np.ndarray, d: np.ndarray,
+                               t: np.ndarray, m: np.ndarray) -> np.ndarray:
+        """`_score_sensor_op` op by op, without a program: the reference."""
+        from icra2021_multimodal_ad_tpu_torch.ops.serving import SERVED_OPS
+
+        n = r.shape[0]
+        bucket = self._sensor_bucket(n)
 
         def pad(a):
             if bucket == n:
@@ -252,14 +286,8 @@ class ScoreServer:
             return np.concatenate([a, reps], axis=0)
 
         with self._score_lock:
-            rj, dj, tj, mj = (self._to_device(pad(a)) for a in (r, d, t, m))
-            if op == "score_base_sensor":
-                s = self.serving.score_sensor(rj, dj, tj, mj)
-            elif op == "score_sap_sensor":
-                s = self.serving.score_sap_windows(
-                    self.serving.fuse_sensor(rj, dj, tj, mj))
-            else:
-                s = self.serving.score_nap_sensor(rj, dj, tj, mj)
+            s = SERVED_OPS[op][0](self.serving, *(
+                self._to_device(pad(a)) for a in (r, d, t, m)))
             return s.cpu().numpy()[:n]
 
     def _score_batched(self, op: str, x: np.ndarray) -> np.ndarray:
@@ -320,32 +348,29 @@ class ScoreServer:
                     r.done.set()
 
     def warmup(self) -> list:
-        """Run every served op once at the smallest and the largest bucket,
-        so the first client requests do not pay the kernels' build and
-        load, cuBLAS's and cuDNN's set-up, or the allocator's first
-        growth.  Returns the ops warmed.  Call before start()."""
+        """Capture every served op's program at the smallest and the
+        largest bucket, on zero probes (the sensor ops on 32 x 32 frames),
+        as JAX compiles them, so the first client requests do not pay the
+        kernels' build and load, cuBLAS's and cuDNN's set-up or a capture.
+        Other buckets and payload shapes are captured at their first
+        request.  Returns the ops warmed.  Call before start()."""
         probe = np.zeros((self.max_batch, self.input_size), np.float32)
-        ops = [op for op in self.OPS
-               if not (op == "score_nap"
-                       and self.serving.nap_stats is None)]
+        has_nap = self.serving.nap_stats is not None
+        ops = [op for op in self.OPS if has_nap or op != "score_nap"]
         for op in ops:
             self._score(op, probe[:1])  # smallest bucket
             self._score(op, probe)      # largest bucket
         if self.serving.fusion_params is not None:
-            # sensor ops: score_base_sensor is its own program; the
-            # sap/nap forms reuse fuse_sensor + the window scorers warmed
-            # above, so warming base + one fused call covers the set
             rr = np.zeros((self.max_batch, 3, 32, 32), np.uint8)
             dd = np.zeros((self.max_batch, 1, 32, 32), np.uint8)
             tt = np.zeros((self.max_batch, 1), np.float32)
             mm = np.zeros((self.max_batch, 1, 13), np.float32)
-            for sl in (slice(0, 1), slice(None)):
-                self._score_sensor_op("score_base_sensor",
-                                      rr[sl], dd[sl], tt[sl], mm[sl])
-                with self._score_lock:
-                    self.serving.fuse_sensor(*(self._to_device(a[sl])
-                                               for a in (rr, dd, tt, mm)))
-            ops = ops + ["score_base_sensor", "fuse_sensor"]
+            sensor = [op for op in self.SENSOR_OPS
+                      if has_nap or op != "score_nap_sensor"]
+            for op in sensor:
+                for sl in (slice(0, 1), slice(None)):
+                    self._score_sensor_op(op, rr[sl], dd[sl], tt[sl], mm[sl])
+            ops = ops + sensor
         return ops
 
     def info(self) -> dict:

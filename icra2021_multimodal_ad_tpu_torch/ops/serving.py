@@ -33,6 +33,10 @@ normalize the whole request first (the mic's min-max is batch-global),
 then shard.  JAX's mesh serving leaves the whitening product to XLA; the
 port's shards run the same kernels as one device.
 
+`ServingPrograms` is the counterpart of JAX's jitted scorers for the score
+server: one CUDA graph per (op, bucket, payload shapes and dtypes), so a
+served request is one replay over pinned staging (`utils/graphs.Program`).
+
 The `export_*` functions serialize a bundle's scorers with `torch.export`:
 plain torch ops with the weights, NAP stats and fusion projection baked in
 as constants, loadable by torch alone (`load_scorer`).
@@ -44,7 +48,8 @@ import copy
 import functools
 import io
 import os
-from typing import NamedTuple, Optional
+import time
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -301,6 +306,86 @@ def make_serving(config, model: AutoEncoder,
                         ae_pack=ae_pack(cast, dtype),
                         fusion_params=fusion_params, nap_int8=int8,
                         mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# One program per served request
+# ---------------------------------------------------------------------------
+
+
+def _score_sap_sensor(serving: ServingModel, r, d, t, m) -> torch.Tensor:
+    return serving.score_sap_windows(serving.fuse_sensor(r, d, t, m))
+
+
+#: the score server's ops: (the bundle's scorer, whether the op takes native
+#: sensor payloads (r, d, t, m) rather than fused (B, input) windows)
+SERVED_OPS = {"score_base": (ServingModel.score_fused, False),
+              "score_sap": (ServingModel.score_sap_windows, False),
+              "score_nap": (ServingModel.score_nap_windows, False),
+              "score_base_sensor": (ServingModel.score_sensor, True),
+              "score_sap_sensor": (_score_sap_sensor, True),
+              "score_nap_sensor": (ServingModel.score_nap_sensor, True)}
+
+
+class ServingPrograms:
+    """A bundle's served ops as captured programs, the counterpart of JAX's
+    jitted scorers (`icra2021_multimodal_ad_tpu/ops/serving.py`, one
+    program per bucket): one `utils/graphs.Program` per (op, bucket,
+    payload shapes and dtypes), captured at its first request, each
+    request one replay.  A program runs the eager scorer's kernels in the
+    same order on inputs of the same layout, so its scores are the eager
+    ones bit for bit.
+
+    Not thread-safe: the caller serializes requests (the score server's
+    lock).  So the programs never run at once, and, their scores going to
+    pinned host memory inside the graph, keep no device tensor alive
+    between replays: they share one memory pool."""
+
+    def __init__(self, serving: ServingModel):
+        if serving.mesh is not None:
+            raise ValueError(
+                "ServingPrograms captures one device's programs; a bundle "
+                "with a mesh shards its rows through collectives "
+                "(parallel/mesh.map_rows), which are not captured: score "
+                "it through the ServingModel's own methods")
+        self.serving = serving
+        self.programs: Dict[tuple, graphs.Program] = {}
+        #: host seconds each program took to warm up and capture, by key
+        self.capture_s: Dict[tuple, float] = {}
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if serving.device.type == "cuda" else None)
+
+    def program(self, op: str, bucket: int,
+                *payloads: np.ndarray) -> graphs.Program:
+        """The program of `op` at `bucket` rows of the payloads' shapes and
+        dtypes, captured now if it is new."""
+        inputs = tuple(((bucket, *a.shape[1:]),
+                        torch.from_numpy(np.empty(0, a.dtype)).dtype)
+                       for a in payloads)
+        key = (op, inputs)
+        if key not in self.programs:
+            fn = functools.partial(SERVED_OPS[op][0], self.serving)
+            t0 = time.perf_counter()
+            self.programs[key] = graphs.Program(
+                fn, inputs, self.serving.device, pool=self._pool)
+            self.capture_s[key] = time.perf_counter() - t0
+        return self.programs[key]
+
+    def score(self, op: str, bucket: int, *payloads: np.ndarray) -> np.ndarray:
+        """The (n,) fp32 scores of the n <= bucket rows of `payloads`, by
+        one replay.  The rows go into the program's pinned staging and the
+        pad rows up to `bucket` are written anew on every request: zeros
+        for fused windows, copies of row 0 for sensor payloads (the mic's
+        min-max spans the whole request, ops/fusion.normalize_mods, so a
+        pad row must not widen it)."""
+        program = self.program(op, bucket, *payloads)
+        n = payloads[0].shape[0]
+        for staged, rows in zip(program.staging(), payloads):
+            staged[:n] = rows
+            staged[n:] = rows[:1] if SERVED_OPS[op][1] else 0
+        program.launch()
+        program.wait()
+        return program.output().numpy()[:n].copy()
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
-"""Captured programs: the port's stand-in for `jax.jit` on the realtime tick.
+"""Captured programs: the port's stand-in for `jax.jit` on the realtime tick
+and the score server.
 
 The JAX package runs each streaming tick as one compiled device program
 (`icra2021_multimodal_ad_tpu/data/streaming.py`, the `_tick_*` programs, and
-`ops/mfcc._mfcc_wave_one_program`).  PyTorch runs eagerly, so a tick of the
-port is ~80 small launches issued one by one from the host.  A `Program`
-captures such a function once as a CUDA graph and replays it as one launch:
+`ops/mfcc._mfcc_wave_one_program`), and each served request as one program
+per (op, bucket) (`ops/score_server.py`).  PyTorch runs eagerly, so a tick
+of the port is ~80 small launches issued one by one from the host.  A
+`Program` captures such a function once as a CUDA graph and replays it as
+one launch:
 
   * it owns fixed buffers: for each slot, pinned host staging that the
     caller writes the next launch's inputs into; one set of device inputs;
@@ -88,17 +91,23 @@ class Program:
     other fixed device tensors it closes over (another program's output).
     to_host: the output is copied to the slot's pinned host output inside
     the graph; else `output(slot)` is the graph's own device output.
+    pool: a memory pool (`torch.cuda.graph_pool_handle()`) the graphs share
+    with other programs' graphs; only for programs that never run at the
+    same time and, being to_host, keep no device tensor of the pool alive
+    between launches (None: a private pool per graph).
     A slot's staging may be rewritten once its last launch has finished:
-    `staging` waits for that."""
+    `staging` waits for that.  Capture and launches run on `device`, from
+    whichever thread calls them."""
 
     def __init__(self, fn: Callable[..., torch.Tensor],
                  inputs: Sequence[Tuple[tuple, torch.dtype]],
                  device: torch.device, slots: int = 1,
-                 to_host: bool = True):
+                 to_host: bool = True, pool=None):
         self.device = torch.device(device)
         self.fn = fn
         self.slots = slots
         self.to_host = to_host
+        self.pool = pool
         cuda = self.device.type == "cuda"
         self._staging = [[torch.zeros(shape, dtype=dtype, pin_memory=cuda)
                           for shape, dtype in inputs]
@@ -113,7 +122,8 @@ class Program:
                             for shape, dtype in inputs]
             self.events = [torch.cuda.Event(enable_timing=True)
                            for _ in range(slots)]
-            self._capture()
+            with torch.cuda.device(self.device):
+                self._capture()
 
     def _body(self, slot: int) -> None:
         for dst, src in zip(self._inputs, self._staging[slot]):
@@ -147,7 +157,7 @@ class Program:
             def capture():
                 # thread_local: a thread waiting on another tick's event
                 # while this one captures is no fault of the capture
-                with torch.cuda.graph(graph,
+                with torch.cuda.graph(graph, pool=self.pool,
                                       capture_error_mode="thread_local"):
                     self._body(slot)
 
@@ -168,8 +178,9 @@ class Program:
         if self._graphs is None:
             self._outputs[slot] = self.fn(*self._staging[slot])
             return
-        self._graphs[slot].replay()
-        self.events[slot].record(torch.cuda.current_stream(self.device))
+        with torch.cuda.device(self.device):
+            self._graphs[slot].replay()
+            self.events[slot].record(torch.cuda.current_stream(self.device))
         add_counts(self.launch_counts)
 
     def wait(self, slot: int = 0) -> None:
