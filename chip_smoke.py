@@ -37,9 +37,11 @@ Phases, each printing one JSON line or more:
    NAP requests; every request must launch the FC kernel, every NAP request
    the NAP kernel;
 5. train and score from fused windows: `novelty_detection.run` at the
-   Config() defaults (3 epochs) on seeded windows with a planted anomaly,
-   from the initial weights and epoch order JAX draws for the seed;
-   the validation and test passes must launch the FC kernel and the NAP
+   Config() defaults (3 epochs, verbose 0: the fused epoch programs) on
+   seeded windows with a planted anomaly, from the initial weights and
+   epoch order JAX draws for the seed; the validation passes (the first
+   epoch's eager, the others replays of the validation graph, counted by
+   the programs) and the test passes must launch the FC kernel and the NAP
    scores the NAP kernel; then the NAP kernel against its plain version on
    the stats `run` fitted and the valid and test diffs it scored, and the
    lo-half check on those stats;
@@ -52,7 +54,8 @@ Phases, each printing one JSON line or more:
    native CSV reader, fused on the card and scored through both kernels by
    `full_test.run_full_test`, against the committed windows and the golden
    column; (b) the train CLI, `novelty_detection.main` at Config()
-   defaults (3 epochs), on 11,200 windows of synthetic data_sum shards
+   defaults (3 epochs, verbose 2: the per-epoch programs, with the
+   CLI's progress lines), on 11,200 windows of synthetic data_sum shards
    written here in the full schema (963 LiDAR columns, 24 x 32 PNGs): the
    native reader, the loader's split sizes, both kernels, finite reports,
    the result CSV; then, on the CLI's own inputs, the FC kernel against its
@@ -145,15 +148,35 @@ Phases, each printing one JSON line or more:
    per-epoch losses within HISTORY_RTOL, each rank's launches by count,
    each kernel against its plain version on that rank's shards, and the
    single process's `test()` on the gloo run's weights against the sharded
-   scores at rtol 1e-5 / atol 1e-6.
+   scores at rtol 1e-5 / atol 1e-6 (the ranks train in the eager loop, the
+   single process on the epoch programs);
+13. the trainer's epoch programs (`train.EpochPrograms`) at Config()
+   widths on phase 5's windows, 3 epochs, in fp32, bf16 training, bf16
+   params and VIB (k 2): the eager loop (`train_all_epochs_eager`), the
+   per-epoch programs and the fused programs from the seeded model, each
+   program run's weights, BN buffers and Adam state bit-identical to the
+   eager loop's, its histories too (fused: their fp32 quotients), fused
+   against per-epoch valid histories within MODES_RTOL, the fused loop
+   under `torch.cuda.set_sync_debug_mode("error")` from the end of its
+   capture to its fetch, a run checkpointed after epoch 1 and resumed to
+   3 bit-exact with the per-epoch run, the FC kernel's launches by count
+   (the first epoch eager, then replays) and against its plain version on
+   the validation pass's inputs; captured epochs and eager ones under
+   torch.profiler (a captured epoch 2 graph launches and no kernel launch
+   from the host, the FC kernel inside the validation graph); ms per
+   epoch, captured fused (A) against eager (B), A B B A twice with the
+   eager validation pass as the control, at phase 5's shape in fp32 and
+   VIB and at the train CLI's 5880 rows, with each capture's ms and the
+   device memory its graphs' pool reserved.
 
 The counts of both kernels are set to 0 just before phases 3, 4, 5, 7a and
 7b, each run of 8c and 10, 11a's realtime run, 11b's exports, 11c's
-servers and each rank of 12 drive their path, and read just after
-(`reset_counts`, `read_counts`).  A path's FC check counts the layers that
-ran on the kernel, a launch per layer or a module per launch (`fc_layers`),
-so it still proves that every layer of every pass ran on a kernel; where
-the batch is small it also counts the module launches.  The next-to-last
+servers, each rank of 12 and each run of 13 drive their path, and read
+just after (`reset_counts`, `read_counts`).  A path's FC check counts the
+layers that ran on the kernel, a launch per layer or a module per launch
+(`fc_layers`), so it still proves that every layer of every pass ran on a
+kernel; where the batch is small it also counts the module launches.  A
+captured program's replays add what its capture counted.  The next-to-last
 line is {"kernels": [...]}, the two per-call kernels and the two
 small-batch variants, whose main path is the streaming tick; the last is
 {"ok": true, "device": {...}}.  Any failed check
@@ -1495,8 +1518,9 @@ def frontend_cli(smi: str, seen: set):
     write_s = time.perf_counter() - t0
     shard_bytes = sum(os.path.getsize(os.path.join(shards, f))
                       for f in os.listdir(shards) if f.endswith(".csv"))
+    # the CLI's default verbose (2): the per-epoch mode, with its lines
     cfg = canonical_config().replace(
-        n_epochs=3, verbose=0, data_folder_name=shards + "/",
+        n_epochs=3, data_folder_name=shards + "/",
         saved_name=os.path.join(root, "model"),
         train_diffs=os.path.join(root, "nap_stats.npz"),
         saved_result=os.path.join(root, "cli_run"))
@@ -3905,6 +3929,389 @@ def phase_sharded(smi: str):
     return per_rank["gloo_rank0"], worst
 
 
+# -- phase 13: the trainer's epoch programs --
+
+#: phase 13: the training variants on the epoch programs, at Config()
+#: widths on phase 5's windows, 3 epochs each (phase 10's variants but the
+#: Gram fit, which trains as fp32 does)
+PROGRAM_RUNS = {"float32": {}, **{k: v for k, v in VARIANT_RUNS.items()
+                                  if k != "gram_fit"}}
+#: the captured (A) against the eager (B) loop: epochs timed per run after
+#: one untimed epoch, rounds of A B B A, and the (variant, train rows, valid
+#: rows) of each case: phase 5's shape and the train CLI's
+EPOCH_AB_EPOCHS, EPOCH_AB_ROUNDS = 6, 2
+EPOCH_AB_CASES = (("float32", TRAIN_ROWS, VALID_ROWS),
+                  ("vib_k2", TRAIN_ROWS, VALID_ROWS),
+                  ("float32", CLI_SPLIT["train"], CLI_SPLIT["valid"]))
+#: the fused mode's histories against the per-epoch mode's (JAX's,
+#: tests/test_end_to_end.py:112-119)
+MODES_RTOL = 1e-5
+
+
+@contextlib.contextmanager
+def no_sync_from_first_replay_to_fetch():
+    """While open, the fused loop of `train.train_all_epochs` runs under
+    `torch.cuda.set_sync_debug_mode("error")` from the end of its capture
+    (its first replay follows) until its fetch: any host sync in between
+    raises."""
+    from icra2021_multimodal_ad_tpu_torch.train import EpochPrograms
+
+    capture, fetch = EpochPrograms.capture, EpochPrograms.fetch
+
+    def capture_then_check(self):
+        capture(self)
+        torch.cuda.set_sync_debug_mode("error")
+
+    def fetch_unchecked(self):
+        torch.cuda.set_sync_debug_mode(0)
+        return fetch(self)
+
+    EpochPrograms.capture = capture_then_check
+    EpochPrograms.fetch = fetch_unchecked
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        EpochPrograms.capture, EpochPrograms.fetch = capture, fetch
+
+
+def run_state(res, opt=None) -> dict:
+    """What a run leaves: its histories, the model's weights and BN
+    buffers, and Adam's step and moments (none without `opt`)."""
+    return {"history": [list(res.train_history), list(res.valid_history)],
+            "model": {k: v.clone() for k, v in
+                      res.model.state_dict().items()},
+            "adam": [] if opt is None else [
+                t.clone() for st in opt.state.values()
+                for t in (st["step"], st["exp_avg"], st["exp_avg_sq"])]}
+
+
+def state_diffs(a: dict, b: dict, fp32_history: bool = False) -> list:
+    """What differs between two runs' states, bit for bit; with
+    `fp32_history`, b's float64 means rounded to fp32 (a fused run's
+    against the eager loop's: the same sums, divided in fp32)."""
+    hist = b["history"]
+    if fp32_history:
+        hist = [[float(np.float32(v)) for v in h] for h in hist]
+    out = [] if a["history"] == hist else ["history"]
+    out += [k for k in a["model"] if not torch.equal(a["model"][k],
+                                                     b["model"][k])]
+    if len(a["adam"]) != len(b["adam"]) or any(
+            not torch.equal(x, y) for x, y in zip(a["adam"], b["adam"])):
+        out.append("adam")
+    return out
+
+
+def train_loop(cfg, loop, x, xv, **kw):
+    """One run of `loop` (`train_all_epochs` or `train_all_epochs_eager`)
+    from the seeded model: (result, optimizer, launches, seconds)."""
+    from icra2021_multimodal_ad_tpu_torch.models.builder import get_model
+    from icra2021_multimodal_ad_tpu_torch.train import make_optimizer
+
+    model = get_model(cfg)
+    opt = make_optimizer(model, cfg.lr)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = loop(model, opt, x, xv, cfg.seed, cfg.batch_size, cfg.n_epochs,
+               **kw)
+    torch.cuda.synchronize()
+    return res, opt, read_counts(), time.perf_counter() - t0
+
+
+def captured_trainer(cfg, x, xv, n_epochs: int):
+    """A seeded model's fused epoch programs with epoch 0 run (eagerly, the
+    warm-up) and the programs captured: (programs, capture ms, MiB of
+    device memory the capture reserved: the graphs' pool)."""
+    from icra2021_multimodal_ad_tpu_torch.models.builder import get_model
+    from icra2021_multimodal_ad_tpu_torch.train import (
+        EpochPrograms,
+        make_optimizer,
+    )
+
+    model = get_model(cfg)
+    progs = EpochPrograms(model, make_optimizer(model, cfg.lr), x, xv,
+                          cfg.seed, cfg.batch_size, n_epochs, fused=True)
+    progs.stage(0)
+    progs.launch(0)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    progs.capture()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    held = (torch.cuda.memory_reserved() - before) / 2 ** 20
+    progs.stage(1)
+    return progs, capture_ms, held
+
+
+def replay_epochs(progs, first: int, last: int) -> dict:
+    """Epochs [first, last) of captured programs as the fused loop runs
+    them (launch, then stage the next), timed on the host to a final
+    synchronize: ms per epoch, and the host's ms per epoch in the
+    launches, waiting for the next epoch's slot (its launch two epochs
+    back) and staging (the order and key draws, written to pinned
+    memory)."""
+    torch.cuda.synchronize()
+    spent = dict.fromkeys(("launch", "slot_wait", "stage"), 0.0)
+    t0 = time.perf_counter()
+    for epoch in range(first, last):
+        t1 = time.perf_counter()
+        progs.launch(epoch)
+        t2 = time.perf_counter()
+        progs.train.wait((epoch + 1) % 2)
+        t3 = time.perf_counter()
+        progs.stage(epoch + 1)
+        spent["launch"] += t2 - t1
+        spent["slot_wait"] += t3 - t2
+        spent["stage"] += time.perf_counter() - t3
+    torch.cuda.synchronize()
+    n = last - first
+    return {"epoch_ms": (time.perf_counter() - t0) * 1e3 / n,
+            **{f"host_{k}_ms": v * 1e3 / n for k, v in spent.items()}}
+
+
+def eager_epochs(cfg, x, xv) -> float:
+    """ms per epoch of the eager loop (`train_all_epochs_eager`, its two
+    syncs an epoch) over EPOCH_AB_EPOCHS epochs after an untimed one."""
+    from icra2021_multimodal_ad_tpu_torch.models.builder import get_model
+    from icra2021_multimodal_ad_tpu_torch.train import (
+        make_optimizer,
+        train_all_epochs_eager,
+    )
+
+    model = get_model(cfg)
+    opt = make_optimizer(model, cfg.lr)
+    args = (model, opt, x, xv, cfg.seed, cfg.batch_size)
+    train_all_epochs_eager(*args, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_all_epochs_eager(*args, 1 + EPOCH_AB_EPOCHS, start_epoch=1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / EPOCH_AB_EPOCHS
+
+
+def epoch_ab(smi: str) -> list:
+    """ms per epoch, captured fused loop (A) against the eager loop (B), A
+    B B A EPOCH_AB_ROUNDS times in each EPOCH_AB_CASES case, with the eager
+    validation pass alone timed in every run as the control; each A run
+    also reports its capture ms and graph memory."""
+    from icra2021_multimodal_ad_tpu_torch.models.builder import get_model
+    from icra2021_multimodal_ad_tpu_torch.train import eval_epoch
+
+    rows = []
+    base = canonical_config()
+    train_x, valid_x, _, _ = phase5_windows(base)
+    for name, n, n_valid in EPOCH_AB_CASES:
+        cfg = base.replace(**PROGRAM_RUNS[name])
+        x, xv = train_x[:n], valid_x[:n_valid]
+        probe = get_model(cfg)  # the control's fixed work
+        runs = {"A": [], "B": []}
+        control = {"A": [], "B": []}
+        for side in "ABBA" * EPOCH_AB_ROUNDS:
+            if side == "A":
+                progs, capture_ms, held = captured_trainer(
+                    cfg, x, xv, 2 + EPOCH_AB_EPOCHS)
+                replay_epochs(progs, 1, 2)  # the first replays, untimed
+                got = replay_epochs(progs, 2, 2 + EPOCH_AB_EPOCHS)
+                got.update(capture_ms=capture_ms, graphs_mib=held)
+                del progs
+            else:
+                got = {"epoch_ms": eager_epochs(cfg, x, xv)}
+            runs[side].append(got)
+            control[side].append(wall_ms(lambda: eval_epoch(
+                probe, xv, cfg.batch_size)))
+            gc.collect()
+            torch.cuda.empty_cache()
+        mean = {k: statistics.mean(r["epoch_ms"] for r in v)
+                for k, v in runs.items()}
+        cmean = {k: statistics.mean(v) for k, v in control.items()}
+        row = dict(phase="trainer_epoch_ab", variant=name, train_rows=n,
+                   valid_rows=n_valid, batch_size=cfg.batch_size,
+                   order="ABBA" * EPOCH_AB_ROUNDS,
+                   captured=runs["A"], eager_epoch_ms=[
+                       r["epoch_ms"] for r in runs["B"]],
+                   control_valid_pass_ms=control,
+                   captured_over_eager=mean["A"] / mean["B"],
+                   control_a_over_b=cmean["A"] / cmean["B"], card=smi)
+        emit(**row)
+        rows.append(row)
+    return rows
+
+
+def trainer_profile(smi: str) -> dict:
+    """Captured fused epochs and eager epochs under torch.profiler
+    (`profile_calls`, one epoch a call) at phase 5's shape in fp32: a
+    captured epoch must be 2 graph launches and no kernel launch from the
+    host, and run the FC kernel inside its validation graph; the device's
+    busy ms and the host's share of each."""
+    from icra2021_multimodal_ad_tpu_torch.models.builder import get_model
+    from icra2021_multimodal_ad_tpu_torch.train import (
+        epoch_permutation,
+        eval_epoch,
+        make_optimizer,
+        train_epoch,
+        vib_epoch_key,
+    )
+
+    cfg = canonical_config()
+    train_x, valid_x, _, _ = phase5_windows(cfg)
+    calls = 5
+    progs, _, _ = captured_trainer(cfg, train_x, valid_x, 4 + calls + 2)
+    epochs = iter(range(1, 4 + calls + 1))
+
+    def captured():
+        epoch = next(epochs)
+        progs.launch(epoch)
+        progs.stage(epoch + 1)
+
+    reset_counts()
+    prof = profile_calls(captured, calls)
+    counts = read_counts()
+    train_ms, eval_ms = progs.times_ms()
+    del progs
+    model = get_model(cfg)
+    opt = make_optimizer(model, cfg.lr)
+    n = train_x.shape[0]
+    eager_epoch = iter(range(100))
+
+    def eager():
+        epoch = next(eager_epoch)
+        float(train_epoch(model, opt, train_x,
+                          epoch_permutation(cfg.seed, epoch, n),
+                          cfg.batch_size, vib_epoch_key(cfg.seed, epoch)))
+        float(eval_epoch(model, valid_x, cfg.batch_size))
+
+    eager_prof = profile_calls(eager, calls)
+    t0 = time.perf_counter()
+    epoch_permutation(cfg.seed, 0, n)
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    per_epoch_fc = (-(-VALID_ROWS // cfg.batch_size)) * 2 * cfg.n_layers
+    row = dict(phase="trainer_profile", captured=prof, eager=eager_prof,
+               fc_layers_per_captured_epoch=counts["fc_layers"] / (4 + calls),
+               want_fc_layers_per_epoch=per_epoch_fc,
+               captured_device_train_ms=train_ms,
+               captured_device_valid_ms=eval_ms,
+               host_permutation_draw_ms=draw_ms, card=smi)
+    emit(**row)
+    require(prof["graph_launches_per_call"] == 2
+            and prof["host_kernel_launches_per_call"] == 0,
+            f"a captured epoch made {prof['graph_launches_per_call']} graph "
+            f"launches and {prof['host_kernel_launches_per_call']} kernel "
+            f"launches from the host, not 2 and 0")
+    fc = sum(n for k, n in prof["kernel_launches_per_call"].items()
+             if k.startswith("fc_"))
+    require(fc > 0, "the captured validation pass ran no FC kernel")
+    require(counts["fc_layers"] == per_epoch_fc * (4 + calls),
+            f"{counts['fc_layers']} FC layers counted over {4 + calls} "
+            f"replayed epochs, not {per_epoch_fc} each")
+    return row
+
+
+def phase_trainer_programs(smi: str, seen: set):
+    """Phase 13: the trainer's epoch programs at Config() widths on phase
+    5's windows, 3 epochs, in every PROGRAM_RUNS variant: the eager loop,
+    the per-epoch programs and the fused programs (under
+    `no_sync_from_first_replay_to_fetch`), each from the seeded model with
+    its counts reset just before and read just after; then a run
+    checkpointed after epoch 1 and resumed to 3.  Both program runs must
+    leave the eager loop's weights, BN buffers and Adam state bit for bit,
+    the per-epoch run its histories and the fused run their fp32
+    quotients; fused and per-epoch histories within MODES_RTOL; the resume
+    the per-epoch run's histories and weights; the FC kernel against its
+    plain version on the validation pass's inputs.  Then the profile
+    (`trainer_profile`) and the A B B A (`epoch_ab`).  Returns (launches
+    of the program runs, worst abs err of the FC kernel)."""
+    from icra2021_multimodal_ad_tpu_torch.models.builder import get_model
+    from icra2021_multimodal_ad_tpu_torch.train import (
+        NoveltyDetecter,
+        train_all_epochs,
+        train_all_epochs_eager,
+    )
+
+    root = os.path.join(RUN_DIR, "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    base = canonical_config().replace(n_epochs=3, verbose=0)
+    train_x, valid_x, _, _ = phase5_windows(base)
+    want_fc = (base.n_epochs * -(-VALID_ROWS // base.batch_size) * 2
+               * base.n_layers)
+    launches = dict.fromkeys(read_counts(), 0)
+    worst = 0.0
+    for name, options in PROGRAM_RUNS.items():
+        cfg = base.replace(**options)
+        dtype = getattr(torch, cfg.train_dtype)
+        x, xv = train_x.to(dtype), valid_x.to(dtype)
+        runs = {}
+        for mode, loop, kw in (("eager", train_all_epochs_eager, {}),
+                               ("per_epoch", train_all_epochs,
+                                dict(fused=False)),
+                               ("fused", train_all_epochs, dict(fused=True))):
+            with (no_sync_from_first_replay_to_fetch() if mode == "fused"
+                  else contextlib.nullcontext()):
+                res, opt, got, wall_s = train_loop(cfg, loop, x, xv, **kw)
+            runs[mode] = dict(state=run_state(res, opt), launches=got,
+                              wall_s=wall_s, train_ms=res.train_ms,
+                              eval_ms=res.eval_ms)
+            if mode == "fused":
+                worst = max(worst, path_mlp_vs_plain(
+                    f"trainer {name} validation", res.model, {"valid": xv},
+                    seen, dtype))
+            if mode != "eager":
+                for k in launches:
+                    launches[k] += got[k]
+            del res, opt
+        ckpt = os.path.join(root, name)
+        NoveltyDetecter(cfg.replace(n_epochs=1)).train(
+            get_model(cfg), train_x, valid_x, checkpoint_path=ckpt,
+            checkpoint_every=1)
+        resumed = NoveltyDetecter(cfg).train(
+            get_model(cfg.replace(seed=cfg.seed + 1)), train_x, valid_x,
+            checkpoint_path=ckpt, resume=True)
+        per_epoch, fused = runs["per_epoch"]["state"], runs["fused"]["state"]
+        eager = runs["eager"]["state"]
+        # the resumed run's weights and histories; the npz checkpoint, in
+        # JAX's layout, keeps no BN batch count
+        resumed = run_state(resumed)
+        for key in [k for k in resumed["model"]
+                    if k.endswith("num_batches_tracked")]:
+            del resumed["model"][key]
+        diffs = {"per_epoch": state_diffs(per_epoch, eager),
+                 "fused": state_diffs(fused, eager, fp32_history=True),
+                 "resumed": state_diffs(resumed, {**per_epoch, "adam": []})}
+        modes_rel = float(np.max(np.abs(
+            np.subtract(fused["history"][1], per_epoch["history"][1]))
+            / np.abs(per_epoch["history"][1])))
+        emit(phase="trainer_programs", variant=name, options=options,
+             rows=[TRAIN_ROWS, VALID_ROWS], n_epochs=cfg.n_epochs,
+             batch_size=cfg.batch_size,
+             histories={m: r["state"]["history"] for m, r in runs.items()},
+             differs_from_eager=diffs, fused_vs_per_epoch_max_rel=modes_rel,
+             seconds={m: r["wall_s"] for m, r in runs.items()},
+             train_ms={m: r["train_ms"] for m, r in runs.items()},
+             eval_ms={m: r["eval_ms"] for m, r in runs.items()},
+             launches={m: r["launches"] for m, r in runs.items()},
+             want_fused_mlp=want_fc, card=smi)
+        for what, d in diffs.items():
+            require(not d, f"trainer {name}: the {what} run differs from "
+                           f"the eager loop in {d[:5]}")
+        require(modes_rel <= MODES_RTOL,
+                f"trainer {name}: fused and per-epoch valid histories "
+                f"{modes_rel} apart")
+        for mode, r in runs.items():
+            require(r["launches"]["fc_layers"] == want_fc,
+                    f"trainer {name} {mode}: {r['launches']['fc_layers']} "
+                    f"FC layers on the kernel, not {want_fc}")
+            require(all(np.isfinite(h).all() for h in r["state"]["history"]),
+                    f"trainer {name} {mode}: non-finite losses")
+        del runs, resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+    trainer_profile(smi)
+    epoch_ab(smi)
+    return launches, worst
+
+
 TIME_KEYS = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
              "matmul_ms", "tflops", "variant")
 #: the small-batch variants' rows also carry variant 0's times (and the NAP
@@ -3969,6 +4376,7 @@ def main() -> int:
     del cli
     late, late_worst = phase_int8_export_server(smi, bundles, req_x, det)
     sharded_launches, sharded_worst = phase_sharded(smi)
+    trainer_launches, trainer_worst = phase_trainer_programs(smi, seen)
     launches = {k: {"serving": serving_launches[k],
                     "train_and_score": run_launches[k],
                     "fixture": fixture_launches[k],
@@ -3976,12 +4384,15 @@ def main() -> int:
                     "streaming": stream_launches[k],
                     "variants": variant_launches[k],
                     **{path: n[k] for path, n in late.items()},
-                    "sharded": sharded_launches[k]}
+                    "sharded": sharded_launches[k],
+                    "trainer_programs": trainer_launches[k]}
                 for k in read_counts()}
-    # every path ran every FC layer and every NAP score on a kernel; the
-    # small-batch variants ran on the streaming tick
+    # every path ran every FC layer and every NAP score on a kernel (the
+    # trainer's programs run no NAP score); the small-batch variants ran on
+    # the streaming tick
     for k in ("fc_layers", "nap_score"):
-        require(all(launches[k].values()),
+        require(all(n for path, n in launches[k].items()
+                    if k == "fc_layers" or path != "trainer_programs"),
                 f"{k} launched on no path of {launches[k]}")
     for k in ("fused_mlp_module", "nap_score_small"):
         require(launches[k]["streaming"] > 0,
@@ -3989,6 +4400,7 @@ def main() -> int:
     for k in ("nap_score", "fused_mlp"):
         worst[k] = max(worst[k], cli_worst[k], stream_worst[k],
                        variant_worst[k], late_worst[k], sharded_worst[k])
+    worst["fused_mlp"] = max(worst["fused_mlp"], trainer_worst)
     for k in ("fused_mlp_module", "nap_score_small"):
         worst[k] = max(row["max_abs_err"] for row in [
             stream_rows[k], *(r for (name, *_), r in small_rows.items()

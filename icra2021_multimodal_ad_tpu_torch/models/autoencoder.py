@@ -21,7 +21,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -35,6 +34,7 @@ from icra2021_multimodal_ad_tpu_torch.ops.mlp_kernel import (
     mlp_pack,
 )
 from icra2021_multimodal_ad_tpu_torch.utils import fp32  # noqa: F401
+from icra2021_multimodal_ad_tpu_torch.utils import jax_prng
 
 #: the autoencoder's loss, always mse with sum reduction
 #: (model_builder.py:40)
@@ -61,7 +61,7 @@ class AutoEncoder(nn.Module):
         self.k = k
         self.stochastic_inference = stochastic_inference
 
-    def encode(self, x: torch.Tensor, key: Optional[np.ndarray] = None):
+    def encode(self, x: torch.Tensor, key: Optional[jax_prng.Key] = None):
         """(B, btl) codes; a VIB model returns the head's {"z": (k, B,
         btl), "mu", "logvar"}, z = mu (k = 1) when it does not sample."""
         x = x.reshape(x.shape[0], -1)
@@ -74,7 +74,7 @@ class AutoEncoder(nn.Module):
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(z)
 
-    def forward(self, x: torch.Tensor, key: Optional[np.ndarray] = None,
+    def forward(self, x: torch.Tensor, key: Optional[jax_prng.Key] = None,
                 return_samples: bool = False) -> torch.Tensor:
         """x -> x_hat (B, D); `key` is the JAX key of the VIB noise."""
         z = self.encode(x, key)
@@ -121,14 +121,15 @@ def packed_forward(pack: AePack, x: torch.Tensor,
 
 def ae_loss(model: AutoEncoder, x: torch.Tensor, train: bool = False,
             pack: Optional[AePack] = None,
-            key: Optional[np.ndarray] = None) -> torch.Tensor:
+            key: Optional[jax_prng.Key] = None) -> torch.Tensor:
     """Reconstruction loss (auto_encoder.py:52-55): the mse-sum of
     (model(x), x), in fp32; a VIB model that samples takes the mean over
     its k samples of each sample's mse-sum.
 
     train=True runs the module's own forward with train-mode BN (which
     updates the running stats in place) and keeps the autograd graph; a
-    VIB model draws its noise under `key`.  Otherwise the forward goes
+    VIB model draws its noise under `key` (numpy words or a device tensor
+    of them, models/vib.py).  Otherwise the forward goes
     through the kernel on `pack`, built from the current weights in x's
     dtype when not given, with z = mu."""
     x2 = x.reshape(x.shape[0], -1)

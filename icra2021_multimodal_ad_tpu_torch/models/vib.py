@@ -16,7 +16,6 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -24,13 +23,15 @@ from icra2021_multimodal_ad_tpu_torch.utils import fp32  # noqa: F401
 from icra2021_multimodal_ad_tpu_torch.utils import jax_prng
 
 
-def reparameterize_normal(key: Optional[np.ndarray], mu: torch.Tensor,
+def reparameterize_normal(key: Optional[jax_prng.Key], mu: torch.Tensor,
                           sigma: torch.Tensor, k: int,
                           stochastic: bool,
                           rows: Optional[Tuple[int, int]] = None
                           ) -> torch.Tensor:
     """z = eps * sigma + mu with k leading samples, eps drawn under `key`
-    (a JAX key, (2,) uint32); mu broadcast over k when not stochastic
+    (a JAX key: (2,) uint32, or a (2,) int64 tensor of its words on mu's
+    device, which a captured program reads at each replay); mu broadcast
+    over k when not stochastic
     (variational_info_bottleneck.py:20-27).  `rows` = (offset, global
     rows): mu is the shard at `offset` of a global batch, and eps is drawn
     for the global batch and sliced there."""
@@ -49,7 +50,7 @@ def reparameterize_normal(key: Optional[np.ndarray], mu: torch.Tensor,
 def vib_forward(module: nn.Module, x: torch.Tensor,
                 distribution: Optional[str] = None, k: int = 1,
                 stochastic_inference: bool = True,
-                key: Optional[np.ndarray] = None,
+                key: Optional[jax_prng.Key] = None,
                 rows: Optional[Tuple[int, int]] = None):
     """`module`'s forward with the VIB head on its output
     (variational_info_bottleneck.py:29-40): identity without a

@@ -1,13 +1,14 @@
-"""Captured programs: the port's stand-in for `jax.jit` on the realtime tick
-and the score server.
+"""Captured programs: the port's stand-in for `jax.jit` on the realtime tick,
+the score server and the trainer's epochs.
 
 The JAX package runs each streaming tick as one compiled device program
 (`icra2021_multimodal_ad_tpu/data/streaming.py`, the `_tick_*` programs, and
-`ops/mfcc._mfcc_wave_one_program`), and each served request as one program
-per (op, bucket) (`ops/score_server.py`).  PyTorch runs eagerly, so a tick
-of the port is ~80 small launches issued one by one from the host.  A
-`Program` captures such a function once as a CUDA graph and replays it as
-one launch:
+`ops/mfcc._mfcc_wave_one_program`), each served request as one program per
+(op, bucket) (`ops/score_server.py`), and each training epoch as one program
+(`train.py`'s `train_epoch`, `eval_epoch`, `train_all_epochs`).  PyTorch
+runs eagerly, so a tick of the port is ~80 small launches issued one by one
+from the host.  A `Program` captures such a function once as a CUDA graph
+and replays it as one launch:
 
   * it owns fixed buffers: for each slot, pinned host staging that the
     caller writes the next launch's inputs into; one set of device inputs;
@@ -19,15 +20,20 @@ one launch:
     `torch.cuda.graph`'s recipe does: the first calls build and load the
     kernel libraries, fill their per-device caches (`sm90::device_info`,
     `allow_smem`, `resident_blocks`), plan the FFT and make the cuBLAS and
-    cuDNN handles, none of which may happen under capture;
+    cuDNN handles, none of which may happen under capture.  A `stateful`
+    program's function changes state that outlives it (an epoch's Adam
+    steps and BN statistics), so it runs no warm-up passes of its own:
+    until the caller calls `capture`, each launch calls `fn` once on the
+    side stream, real work that is counted, and the caller's first launch
+    is the warm-up;
   * every replay goes to the current stream, in order, so a cooperative
     kernel inside a graph never shares the card with another tick's work.
 
 Launch counts.  The kernels' wrappers count their launches (`counted`), but
 a replay does not run the wrappers: a capture records what the wrappers
 added while it ran (`recorded`), and each launch adds that again
-(`add_counts`).  The warm-up calls are set-up, as a build is, and are not
-counted.
+(`add_counts`).  The warm-up passes are set-up, as a build is, and are not
+counted; a stateful program's eager launches are counted as they run.
 
 On the CPU, which only the tests use, a program calls `fn` eagerly on the
 same staging, because the caller asked for the CPU.  On CUDA there is no
@@ -84,6 +90,10 @@ def add_counts(delta: Sequence[int]) -> None:
     _set_counts([c + d for c, d in zip(_counts(), delta)])
 
 
+def _pinned_like(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
 class Program:
     """`fn(*inputs) -> output` over fixed buffers, one CUDA graph per slot.
 
@@ -95,6 +105,8 @@ class Program:
     with other programs' graphs; only for programs that never run at the
     same time and, being to_host, keep no device tensor of the pool alive
     between launches (None: a private pool per graph).
+    stateful: no warm-up passes and no capture in the constructor; the
+    launches before `capture` run `fn` eagerly on a side stream (above).
     A slot's staging may be rewritten once its last launch has finished:
     `staging` waits for that.  Capture and launches run on `device`, from
     whichever thread calls them."""
@@ -102,28 +114,32 @@ class Program:
     def __init__(self, fn: Callable[..., torch.Tensor],
                  inputs: Sequence[Tuple[tuple, torch.dtype]],
                  device: torch.device, slots: int = 1,
-                 to_host: bool = True, pool=None):
+                 to_host: bool = True, pool=None, stateful: bool = False):
         self.device = torch.device(device)
         self.fn = fn
         self.slots = slots
         self.to_host = to_host
         self.pool = pool
-        cuda = self.device.type == "cuda"
-        self._staging = [[torch.zeros(shape, dtype=dtype, pin_memory=cuda)
+        self._cuda = self.device.type == "cuda"
+        self._staging = [[torch.zeros(shape, dtype=dtype,
+                                      pin_memory=self._cuda)
                           for shape, dtype in inputs]
                          for _ in range(slots)]
         self._outputs: List[Optional[torch.Tensor]] = [None] * slots
         self.launch_counts: Optional[List[int]] = None
         self._graphs: Optional[List[torch.cuda.CUDAGraph]] = None
         self.events: List[Optional[torch.cuda.Event]] = [None] * slots
-        if cuda:
+        if self._cuda:
             self._inputs = [torch.zeros(shape, dtype=dtype,
                                         device=self.device)
                             for shape, dtype in inputs]
             self.events = [torch.cuda.Event(enable_timing=True)
                            for _ in range(slots)]
-            with torch.cuda.device(self.device):
-                self._capture()
+            self._side = torch.cuda.Stream(self.device)
+            if not stateful:
+                with torch.cuda.device(self.device):
+                    self._warm_up()
+                self.capture()
 
     def _body(self, slot: int) -> None:
         for dst, src in zip(self._inputs, self._staging[slot]):
@@ -133,36 +149,47 @@ class Program:
             self._outputs[slot] = out
             return
         if self._outputs[slot] is None:
-            self._outputs[slot] = torch.empty(out.shape, dtype=out.dtype,
-                                              pin_memory=True)
+            self._outputs[slot] = _pinned_like(out)
         self._outputs[slot].copy_(out, non_blocking=True)
 
-    def _capture(self) -> None:
+    def _on_side(self, slots: Sequence[int], passes: int = 1) -> None:
+        """`passes` calls of the body of each of `slots` on the side
+        stream, after the current stream's work and before its next."""
         stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(stream)
-
-        def warm_up():
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_PASSES):
-                    for slot in range(self.slots):
-                        self._body(slot)
-            stream.wait_stream(side)
-
-        recorded(warm_up)
-        graphs = []
-        for slot in range(self.slots):
-            graph = torch.cuda.CUDAGraph()
-
-            def capture():
-                # thread_local: a thread waiting on another tick's event
-                # while this one captures is no fault of the capture
-                with torch.cuda.graph(graph, pool=self.pool,
-                                      capture_error_mode="thread_local"):
+        self._side.wait_stream(stream)
+        with torch.cuda.stream(self._side):
+            for _ in range(passes):
+                for slot in slots:
                     self._body(slot)
+        stream.wait_stream(self._side)
 
-            _, delta = recorded(capture)
-            graphs.append(graph)
+    def _warm_up(self) -> None:
+        recorded(lambda: self._on_side(range(self.slots), WARMUP_PASSES))
+
+    def capture(self) -> None:
+        """Capture every slot's graph (a stateful program's, once the
+        caller's eager launches have warmed `fn` up); no-op on the CPU."""
+        if not self._cuda:
+            return
+        if self.to_host:  # pinned memory cannot be allocated under capture
+            done = next(o for o in self._outputs if o is not None)
+            self._outputs = [_pinned_like(done) if o is None else o
+                             for o in self._outputs]
+        graphs = []
+        with torch.cuda.device(self.device):
+            for slot in range(self.slots):
+                graph = torch.cuda.CUDAGraph()
+
+                def capture():
+                    # thread_local: a thread waiting on another tick's
+                    # event while this one captures is no fault of the
+                    # capture
+                    with torch.cuda.graph(graph, pool=self.pool,
+                                          capture_error_mode="thread_local"):
+                        self._body(slot)
+
+                _, delta = recorded(capture)
+                graphs.append(graph)
         self.launch_counts = delta
         self._graphs = graphs
 
@@ -174,14 +201,19 @@ class Program:
 
     def launch(self, slot: int = 0) -> None:
         """Replay the slot's graph on the current stream, record its event
-        and add its launches to the counts; on the CPU, call fn."""
-        if self._graphs is None:
+        and add its launches to the counts; a stateful program not yet
+        captured calls fn once on the side stream instead; on the CPU,
+        call fn."""
+        if not self._cuda:
             self._outputs[slot] = self.fn(*self._staging[slot])
             return
         with torch.cuda.device(self.device):
-            self._graphs[slot].replay()
+            if self._graphs is None:
+                self._on_side([slot])
+            else:
+                self._graphs[slot].replay()
+                add_counts(self.launch_counts)
             self.events[slot].record(torch.cuda.current_stream(self.device))
-        add_counts(self.launch_counts)
 
     def wait(self, slot: int = 0) -> None:
         """Until the slot's last launch has finished."""

@@ -37,13 +37,18 @@ draws, the model's weights and the VIB noise, are also replayed on a card
 (`uniform_device`, `normal_device`): torch integer ops, uint32 emulated in
 int64 with masks, equal bit for bit to the numpy replay.  On the CPU
 `uniform_device` takes the numpy replay, which runs there ~4x faster than
-torch's int64 ops.
+torch's int64 ops.  Their key is a numpy key or a (2,) int64 tensor of its
+words on the draw's device: a captured program (the trainer's epoch,
+train.py) reads the tensor's words from its buffer at each replay, where a
+numpy key's words would be baked into the graph.  Both forms draw the same
+bits, and the torch ops copy nothing from the host, so they may be
+captured.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Sequence, Union
 
 import numpy as np
 import torch
@@ -241,12 +246,20 @@ def normal(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
 # -- the same draws as torch integer ops, for a card --------------------------
 
 
-def _threefry_torch(key: np.ndarray, x1: torch.Tensor) -> torch.Tensor:
+#: a JAX key: numpy (2,) uint32 words, or a (2,) int64 tensor of them
+Key = Union[np.ndarray, torch.Tensor]
+
+
+def _threefry_torch(key: Key, x1: torch.Tensor) -> torch.Tensor:
     """`b1 ^ b2` of threefry-2x32 over the counters (0, x1); x1 and the
-    result are int64 holding uint32 values."""
-    k0, k1 = int(key[0]), int(key[1])
+    result are int64 holding uint32 values.  A tensor key's words stay
+    0-d tensors on its device, so nothing reads them on the host."""
+    if isinstance(key, torch.Tensor):
+        k0, k1 = key[0], key[1]
+    else:
+        k0, k1 = int(key[0]), int(key[1])
     ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
-    x0 = torch.full_like(x1, ks[0])
+    x0 = torch.zeros_like(x1) + ks[0]
     x1 = (x1 + ks[1]) & _M32
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
@@ -257,7 +270,7 @@ def _threefry_torch(key: np.ndarray, x1: torch.Tensor) -> torch.Tensor:
     return x0 ^ x1
 
 
-def _random_bits_torch(key: np.ndarray, shape: Sequence[int],
+def _random_bits_torch(key: Key, shape: Sequence[int],
                        device) -> torch.Tensor:
     """`random_bits` on `device`: int64 holding the uint32 bits."""
     n = _n_elements(shape)
@@ -271,9 +284,13 @@ def _as_f32(bits: torch.Tensor) -> torch.Tensor:
 
 
 def _fma_to_f32_torch(a: torch.Tensor, b, c) -> torch.Tensor:
-    """`_fma_to_f32` in torch float64: float32 of the exact a * b + c."""
-    p = a.double() * torch.as_tensor(b, dtype=torch.float32).double()
-    c64 = torch.as_tensor(c, dtype=torch.float32, device=a.device).double()
+    """`_fma_to_f32` in torch float64: float32 of the exact a * b + c; b
+    and c are float32 tensors or float32 values (numpy scalars), which
+    enter as Python floats, exactly, with no copy to the device."""
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor)
+                      else float(np.float32(b)))
+    c64 = (c.double() if isinstance(c, torch.Tensor)
+           else float(np.float32(c)))
     s = p + c64
     bb = s - p
     e = (p - (s - bb)) + (c64 - bb)
@@ -285,18 +302,19 @@ def _fma_to_f32_torch(a: torch.Tensor, b, c) -> torch.Tensor:
     return torch.where(go_other, other, r)
 
 
-def uniform_device(key: np.ndarray, shape: Sequence[int],
+def uniform_device(key: Key, shape: Sequence[int],
                    minval: float = 0.0, maxval: float = 1.0,
                    dtype: str = "float32", device="cpu") -> torch.Tensor:
     """`uniform` on `device`, as a tensor of `dtype` (float32 or
     bfloat16): the numpy replay on the CPU, torch integer ops on a card."""
     if torch.device(device).type == "cpu":
+        key = np.asarray(key).astype(np.uint32)  # a CPU tensor key's words
         return torch.from_numpy(uniform(key, shape, minval, maxval,
                                         dtype)).to(getattr(torch, dtype))
     return _uniform_torch(key, shape, minval, maxval, dtype, device)
 
 
-def _uniform_torch(key: np.ndarray, shape: Sequence[int], minval: float,
+def _uniform_torch(key: Key, shape: Sequence[int], minval: float,
                    maxval: float, dtype: str, device) -> torch.Tensor:
     """`uniform` as torch integer ops on `device`."""
     if dtype not in _DTYPES:
@@ -320,11 +338,9 @@ def _erf_inv_torch(u: torch.Tensor) -> torch.Tensor:
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
 
-    def coef(i):
-        return torch.where(lt, torch.tensor(np.float32(_ERFINV_LT5[i]),
-                                            device=u.device),
-                           torch.tensor(np.float32(_ERFINV_GE5[i]),
-                                        device=u.device))
+    def coef(i):  # float32 values as Python floats: no upload
+        return torch.where(lt, float(np.float32(_ERFINV_LT5[i])),
+                           float(np.float32(_ERFINV_GE5[i])))
 
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
@@ -332,7 +348,7 @@ def _erf_inv_torch(u: torch.Tensor) -> torch.Tensor:
     return p * u
 
 
-def normal_device(key: np.ndarray, shape: Sequence[int],
+def normal_device(key: Key, shape: Sequence[int],
                   dtype: str = "float32", device="cpu") -> torch.Tensor:
     """`normal` on `device`, as a tensor of `dtype`.  bfloat16 follows
     `_normal_real` in bfloat16: a bfloat16 uniform in (nextafter(-1, 0),

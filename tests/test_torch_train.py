@@ -141,11 +141,12 @@ def test_best_model_restores_lowest_valid():
 def test_checkpoint_resume_is_bit_exact(tmp_path):
     """Interrupt at epoch 3 of 6 and resume from the mid-run checkpoint:
     histories and best weights equal the uninterrupted run exactly
-    (tests/test_train_parity.py:131 for JAX)."""
+    (tests/test_train_parity.py:131 for JAX, whose uninterrupted run is
+    per-epoch too, the checkpointing path's mode)."""
     cfg = _small_cfg(batch_size=20, lr=3e-3, seed=0)
     x, xv = _rows(64, 12, seed=0), _rows(20, 12, seed=3)
     full = NoveltyDetecter(cfg.replace(n_epochs=6), device="cpu").train(
-        get_model(cfg, device="cpu"), x, xv)
+        get_model(cfg, device="cpu"), x, xv, fused=False)
     ckpt = str(tmp_path / "mid")
     NoveltyDetecter(cfg.replace(n_epochs=3), device="cpu").train(
         get_model(cfg, device="cpu"), x, xv, checkpoint_path=ckpt,

@@ -150,11 +150,12 @@ def test_three_epochs_k2_from_the_seed_track_jax():
 
 def test_resume_with_more_epochs_is_bit_equal(tmp_path):
     """The noise of an epoch depends on (seed, epoch) alone, not on the
-    epoch budget (JAX: tests/test_vib_integration.py:207)."""
+    epoch budget (JAX: tests/test_vib_integration.py:207, its uninterrupted
+    run per-epoch too)."""
     cfg = _train_cfg()
     x, xv = _x(48, seed=6), _x(16, seed=7)
     full = NoveltyDetecter(cfg.replace(n_epochs=5), device="cpu").train(
-        get_model(cfg, device="cpu"), x, xv)
+        get_model(cfg, device="cpu"), x, xv, fused=False)
     ckpt = str(tmp_path / "mid")
     NoveltyDetecter(cfg.replace(n_epochs=3), device="cpu").train(
         get_model(cfg, device="cpu"), x, xv, checkpoint_path=ckpt,
