@@ -54,36 +54,48 @@
 //
 // Variant 4, fp32 at small batches (B <= SMALL_MAX_B): a whole eval-mode
 // module in one launch, the TPU kernel's own fusion (`fused_mlp_module`).
-//   * A persistent cooperative kernel: one block per SM (fewer where the
-//     occupancy query at its shared memory allows none), launched with
+//   * A persistent cooperative kernel: one block per SM, launched with
 //     cudaLaunchCooperativeKernel (a refused launch returns its error),
-//     and a grid sync between layers.  Layer l reads layer l-1's fp32
-//     output from device memory (L2 at this size: at most 64 x 1728 x 4 B).
-//   * Each block owns groups of output columns (rows of W) of each layer
-//     and streams them once through a ring of 16-byte cp.async chunks, as
-//     deep in k as two fit in shared memory (up to 1024), with the B input
-//     rows beside them: the whole grid reads W.
-//   * The same order as variants 0 and 1, so the same bits: every 32-deep
-//     stage is its own fmaf chain in k order from 0; different threads
-//     compute different stages' chains at once (a split of K), each
-//     writes its stage totals to shared memory, and the thread that owns
-//     an output adds them with __fadd_rn in stage order into its running
-//     total.  The epilogue is fc_apply.  Only intrinsics, so ptxas can
-//     neither contract nor reassociate.
+//     and a grid sync between layers.  Each block owns groups of output
+//     columns (rows of W) of each layer.
+//   * A producer warp fills a ring of chunks (spc 32-deep stages of k) by
+//     bulk copies (cp.async.bulk) on full/empty mbarriers: the group's
+//     weight rows and the layer's B input rows, each once per chunk.  The
+//     ring runs across layers: weights do not depend on the activations,
+//     so layer l + 1's stream into the slots layer l frees while l
+//     computes and syncs; only its input rows wait for the grid sync.
+//   * Eleven consumer warps take work items sized to B (RT rows, the
+//     fewest groups of at most 8 rows, so B = 10 is 2 x 5 with no slot
+//     masked) of one column and one stage, consecutive threads on
+//     consecutive columns; every 32-deep stage is its own fmaf chain in k
+//     order from 0, the stage totals go to shared memory, and the thread
+//     that owns an output adds them with __fadd_rn in stage order into its
+//     running total: the same order as variants 0 and 1, so the same bits.
+//     The epilogue is fc_apply.  Only intrinsics, so ptxas can neither
+//     contract nor reassociate.
 //   * Every layer's output (the RaPP tap) goes to one fp32 buffer, rows
 //     padded to 16 bytes; the layer table (pointers, K, N, strides, leaky,
 //     BN vectors) is built once by the caller's pack.
 //   * Bound at B = 10: one fp32 canonical encoder's 20.4 MB of weights,
-//     ~6.1 us at 3.35 TB/s.  Measured far above it (PERF.md §6): a launch
-//     of five 8 x 8 layers costs ~26 us, and L2 holding the weights saves
-//     only 10-15 %, so the time goes to the launch, the grid syncs and
-//     each chunk's latency more than to the bytes.
+//     ~6.1 us at 3.35 TB/s.  Measured, device ms at B = 1 / 10 / 32: 0.034
+//     / 0.046 / 0.083, against 0.057 / 0.074 / 0.142 for the design before
+//     it (PERF.md §6).  What holds it there
+//     (scripts/torch_small_kernel_probe.py, PERF.md §5): that design
+//     started each layer's weights after the grid sync (a 1.6-5.9 us
+//     prologue a layer) and spent up to 11.5 us a chunk at B = 32 in
+//     shared-memory reads; here a layer after the first waits ~1-2 us for
+//     its inputs from L2 after the sync, the first layer ~4.5 us for its
+//     first chunk, a chunk costs ~0.5-0.7 us of adds and barriers beside
+//     its items (each group's epilogue vectors are loaded at its first
+//     chunk, off that path), and every block reads all B input rows of
+//     each layer from L2, as many bytes again as the weights at B = 10.
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
 #include <cstring>
 
+#include "probe.cuh"
 #include "sm90_gemm.cuh"
 
 namespace {
@@ -237,14 +249,16 @@ int launch_wgmma(const void* x, int ldx, const void* w, int ldw,
 // variant 4: a whole fp32 module at small batches, one cooperative launch
 // ---------------------------------------------------------------------------
 
-constexpr int FM_THREADS = 256;
-constexpr int FM_SEG = 36;         // floats per 32-deep stage in shared rows
-constexpr int FM_RT = 8;           // rows of one work item
+constexpr int FM_THREADS = 352;   // the consumers: 11 warps
+constexpr int FM_BLOCK = FM_THREADS + 32;  // and one producer warp
 constexpr int FM_CG = 16;          // columns per group, at most
 constexpr int FM_MAX_B = 64;       // KERNEL_MAX_B of ops/mlp_kernel.py
 constexpr int FM_MAX_LAYERS = 32;  // MODULE_MAX_LAYERS of ops/mlp_kernel.py
 constexpr int FM_MAX_SPC = 32;     // 32-deep stages per chunk, at most
-constexpr int FM_MAX_RING = 4;
+constexpr int FM_MAX_RING = 8;     // chunks in flight, at most
+constexpr int FM_RING_TARGET = 4;  // the ring the chunk depth leaves room for
+// outputs a thread adds
+constexpr int FM_OWNED = (FM_CG * FM_MAX_B + FM_THREADS - 1) / FM_THREADS;
 
 // One layer of the table; ops/mlp_kernel.py's _FmLayer mirrors it.
 struct FmLayer {
@@ -267,155 +281,304 @@ struct FmParams {
   FmLayer layers[FM_MAX_LAYERS];
 };
 
+// a shared row of one chunk: 32 * spc floats and 4 more, so that rows
+// start in different 16-byte bank groups (row / 4 is odd)
+__host__ __device__ constexpr int fm_row(int spc) { return 32 * spc + 4; }
 // one ring slot: B input rows and FM_CG weight rows of one chunk
 __host__ __device__ constexpr int fm_slot_floats(int B, int spc) {
-  return (B + FM_CG) * spc * FM_SEG;
+  return (B + FM_CG) * fm_row(spc);
 }
 __host__ __device__ constexpr int fm_partial_floats(int B, int spc) {
   return FM_CG * spc * B;
 }
+// the slots, the stage totals and three mbarriers a slot (weights in,
+// inputs in, slot free)
+__host__ __device__ constexpr int fm_smem_floats(int B, int spc, int ring) {
+  return (ring * fm_slot_floats(B, spc) + fm_partial_floats(B, spc) + 1) /
+             2 * 2 + 6 * ring;
+}
 
-__global__ void __launch_bounds__(FM_THREADS, 1)
+// Where one block is in its sequence of chunks over the module's layers:
+// layer l, and chunk `it` of the layer's mine * chunks (column group
+// it / chunks of this block's, k chunk it % chunks).
+struct FmCursor {
+  int l, it;
+};
+
+// the consumer warps' barrier (the producer warp runs on its own)
+__device__ __forceinline__ void fm_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(FM_THREADS) : "memory");
+}
+
+// RT rows per work item: item (n, rg, s) is the 32-deep stage s of output
+// column n for rows rg + G r (r < RT, G = ceil(B / RT)), each its own fmaf
+// chain in k order from 0; consecutive threads take consecutive columns,
+// then row groups, so a warp reads few stages.  The consumer warps
+// compute; one producer warp fills the ring by bulk copies.
+template <int RT>
+__global__ void __launch_bounds__(FM_BLOCK, 1)
 fc_module_kernel(const __grid_constant__ FmParams p) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, B = p.B, spc = p.spc;
-  const int row_floats = spc * FM_SEG, kc = 32 * spc;
+  const int row = fm_row(spc), kc = 32 * spc;
   const int slot = fm_slot_floats(B, spc);
   float* part_s = smem + p.ring * slot;  // (FM_CG, spc, B) stage totals
-  const int G = (B + FM_RT - 1) / FM_RT;  // row groups of work items
+  // full_w[s]: slot s's weight rows landed; full_x[s]: its inputs;
+  // empty[s]: the consumers are done with it
+  uint64_t* full_w = reinterpret_cast<uint64_t*>(
+      smem + fm_smem_floats(B, spc, p.ring) - 6 * p.ring);
+  uint64_t* full_x = full_w + p.ring;
+  uint64_t* empty = full_x + p.ring;
+  const int G = (B + RT - 1) / RT;
   const int blocks = gridDim.x, block = blockIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  PROBE_DECL;
+  PROBE_MARK(1, 0);
+  if (tid == 0) {
+    for (int i = 0; i < p.ring; ++i) {
+      sm90::mbar_init(&full_w[i], 1);
+      sm90::mbar_init(&full_x[i], 1);
+      sm90::mbar_init(&empty[i], FM_THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
+  auto cg_of = [&](int l) {
+    return min(FM_CG, (p.layers[l].N + blocks - 1) / blocks);
+  };
+  auto chunks_of = [&](int l) { return (p.layers[l].K + kc - 1) / kc; };
+  // the chunks this block runs in layer l
+  auto chunks_in = [&](int l) {
+    const int n_groups = (p.layers[l].N + cg_of(l) - 1) / cg_of(l);
+    const int mine = block < n_groups ? (n_groups - 1 - block) / blocks + 1
+                                      : 0;
+    return mine * chunks_of(l);
+  };
+  auto step = [&](FmCursor c) {
+    ++c.it;
+    while (c.l < p.n_layers && c.it >= chunks_in(c.l)) {
+      ++c.l;
+      c.it = 0;
+    }
+    return c;
+  };
+
+  if (warp == FM_THREADS / 32) {
+    // The producer: `rows` rows of chunk c (k from its k0 up to K rounded
+    // up to 4 floats: what lies past K is never read) into `dst` by bulk
+    // copies counted on `bar`.  Weight rows past N are not copied (their
+    // outputs are never stored).
+    auto copy_rows = [&](FmCursor c, float* dst, const float* src, int ld,
+                         int rows, uint64_t* bar) {
+      const int K = p.layers[c.l].K, k0 = (c.it % chunks_of(c.l)) * kc;
+      const int bytes = 4 * min(kc, (K + 3) / 4 * 4 - k0);
+      if (lane == 0) sm90::mbar_expect_tx(bar, bytes * rows);
+      __syncwarp();
+      for (int r = lane; r < rows; r += 32)
+        sm90::bulk_load(dst + r * row, src + static_cast<size_t>(r) * ld + k0,
+                        bytes, bar);
+    };
+    auto load_w = [&](FmCursor c, int i) {
+      const FmLayer& L = p.layers[c.l];
+      const int n0 = (block + (c.it / chunks_of(c.l)) * blocks) * cg_of(c.l);
+      copy_rows(c, smem + (i % p.ring) * slot + B * row,
+                L.w + static_cast<size_t>(n0) * L.ldw, L.ldw,
+                min(cg_of(c.l), L.N - n0), &full_w[i % p.ring]);
+    };
+    auto load_x = [&](FmCursor c, int i) {
+      const float* x = c.l == 0 ? p.x
+                                : p.out + B * p.layers[c.l - 1].out_offset;
+      copy_rows(c, smem + (i % p.ring) * slot, x,
+                c.l == 0 ? p.ldx : p.layers[c.l - 1].ldo, B,
+                &full_x[i % p.ring]);
+    };
+    // chunk i (a sequence number over the whole module) goes to slot
+    // i % ring once chunk i - ring is consumed: its weights at once, so
+    // they run ahead across layers, its inputs once their layer's grid
+    // sync is past.  In layer l the consumers free the slots of chunks
+    // before `end` (the chunks of layers up to l), so the weights run at
+    // most to end + ring - 1 before the producer joins the next sync.
+    FmCursor cw{0, -1};
+    cw = step(cw);
+    FmCursor cx = cw;
+    int iw = 0, ix = 0, end = 0;
+    for (int l = 0; l < p.n_layers; ++l) {
+      if (l > 0) grid.sync();
+      end += chunks_in(l);
+      for (; ix < iw && cx.l <= l; cx = step(cx)) load_x(cx, ix++);
+      for (; cw.l < p.n_layers && iw < end + p.ring; cw = step(cw), ++iw) {
+        if (iw >= p.ring)
+          sm90::mbar_wait(&empty[iw % p.ring], (iw / p.ring - 1) & 1);
+        load_w(cw, iw);
+        if (ix == iw && cx.l <= l) {
+          load_x(cx, ix++);
+          cx = step(cx);
+        }
+      }
+    }
+    return;
+  }
+
+  int done = 0;  // chunks consumed
   for (int l = 0; l < p.n_layers; ++l) {
+    if (l > 0) {
+      // the previous layer's outputs are visible to every block, and come
+      // before the copy engine's reads of them, before any of its inputs
+      // are copied; its weights are already in flight
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      PROBE_MARK(3, l - 1);
+      grid.sync();
+      PROBE_MARK(4, l - 1);
+    }
     const FmLayer& L = p.layers[l];
-    const float* x = l == 0 ? p.x : p.out + B * p.layers[l - 1].out_offset;
-    const int ldx = l == 0 ? p.ldx : p.layers[l - 1].ldo;
     const FcOut fo{L.bias, L.bn_mean, L.bn_std, L.bn_weight, L.bn_beta,
                    p.out + B * L.out_offset, nullptr, L.ldo, 0, B, L.N,
                    L.leaky};
-    const int cg = min(FM_CG, (L.N + blocks - 1) / blocks);
-    const int n_groups = (L.N + cg - 1) / cg;
-    const int nk = (L.K + 31) / 32;
-    const int chunks = (L.K + kc - 1) / kc;
-    const int mine = block < n_groups ? (n_groups - 1 - block) / blocks + 1
-                                      : 0;
-    const int total = mine * chunks;
-    auto n0_of = [&](int it) { return (block + (it / chunks) * blocks) * cg; };
-    auto load = [&](int it) {
-      float* xs = smem + (it % p.ring) * slot;
-      const int k0 = (it % chunks) * kc, n0 = n0_of(it);
-      // 8 16-byte copies per 32-deep stage
-      for (int e = tid; e < (B + cg) * spc * 8; e += FM_THREADS) {
-        const int r = e / (spc * 8), s = (e / 8) % spc, c4 = 4 * (e % 8);
-        const int k = k0 + 32 * s + c4;
-        const bool is_x = r < B;
-        const int row = is_x ? r : n0 + r - B;
-        const float* src = is_x ? x : L.w;
-        const float* g = src;
-        int bytes = 0;
-        if (row < (is_x ? B : L.N) && k < L.K) {
-          g = src + static_cast<size_t>(row) * (is_x ? ldx : L.ldw) + k;
-          bytes = min(16, 4 * (L.K - k));
+    const int cg = cg_of(l), chunks = chunks_of(l), nk = (L.K + 31) / 32;
+    const int total = chunks_in(l);
+    float tot[FM_OWNED];
+    FcCol col[FM_OWNED];
+#pragma unroll
+    for (int i = 0; i < FM_OWNED; ++i) tot[i] = 0.f;
+    for (int it = 0; it < total; ++it, ++done) {
+      const int s_ = done % p.ring, parity = (done / p.ring) & 1;
+      const int n0 = (block + (it / chunks) * blocks) * cg;
+      if (it % chunks == 0) {
+        // the group's epilogue vectors, in flight while its chunks run
+#pragma unroll
+        for (int i = 0; i < FM_OWNED; ++i) {
+          const int o = tid + i * FM_THREADS;
+          if (o < cg * B && n0 + o / B < L.N) col[i] = fc_col(fo, n0 + o / B);
         }
-        sm90::cp_async16(xs + r * row_floats + s * FM_SEG + c4, g, bytes);
       }
-    };
-
-    float tot[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int s = 0; s < p.ring - 1; ++s) {
-      if (s < total) load(s);
-      sm90::cp_async_commit();
-    }
-    for (int it = 0; it < total; ++it) {
-      // chunk it has landed; the slot and the stage totals read in the last
-      // iteration are free
-      sm90::cp_async_wait_upto(p.ring - 2);
-      __syncthreads();
-      if (it + p.ring - 1 < total) load(it + p.ring - 1);
-      sm90::cp_async_commit();
-      const float* xs = smem + (it % p.ring) * slot;
-      const float* ws = xs + B * row_floats;
+      sm90::mbar_wait(&full_w[s_], parity);
+      sm90::mbar_wait(&full_x[s_], parity);
+      // also frees the stage totals read last
+      fm_consumers_sync();
+      PROBE_MARK(2, (l << 16) | it);
+      const float* xs = smem + s_ * slot;
+      const float* ws = xs + B * row;
       const int st0 = (it % chunks) * spc;  // the chunk's first stage
       const int n_st = min(spc, nk - st0);
-      // work item: one stage s of one column n for rows rg, rg + G, ...
-      for (int w = tid; w < cg * spc * G; w += FM_THREADS) {
-        const int s = w % spc, n = (w / spc) % cg, rg = w / (spc * cg);
-        if (s >= n_st) continue;
-        const float* wr = ws + n * row_floats + s * FM_SEG;
-        const float* xr = xs + s * FM_SEG;
-        float part[FM_RT];
+      for (int w = tid; w < cg * G * n_st; w += FM_THREADS) {
+        const int n = w % cg, rg = (w / cg) % G, s = w / (cg * G);
+        const float* wr = ws + n * row + 32 * s;
+        const float* xr = xs + 32 * s;
+        // the stage's depth: 32, or what is left of K in the last one
+        const int lim = min(32, L.K - 32 * (st0 + s));
+        float part[RT];
 #pragma unroll
-        for (int r = 0; r < FM_RT; ++r) part[r] = 0.f;
-        // two steps at a time: unrolled whole, ptxas hoisted all 72 shared
-        // loads and spilled at 255 registers
+        for (int r = 0; r < RT; ++r) part[r] = 0.f;
+        if (lim == 32) {
 #pragma unroll 2
-        for (int kk = 0; kk < 32; kk += 4) {
-          const float4 wv = *reinterpret_cast<const float4*>(wr + kk);
+          for (int kk = 0; kk < 32; kk += 4) {
+            const float4 wv = *reinterpret_cast<const float4*>(wr + kk);
 #pragma unroll
-          for (int r = 0; r < FM_RT; ++r) {
-            if (rg + r * G < B) {
+            for (int r = 0; r < RT; ++r) {
+              // rows past B read row B - 1 and are never stored
               const float4 a = *reinterpret_cast<const float4*>(
-                  xr + (rg + r * G) * row_floats + kk);
+                  xr + min(rg + G * r, B - 1) * row + kk);
               part[r] = fmaf(a.x, wv.x, part[r]);
               part[r] = fmaf(a.y, wv.y, part[r]);
               part[r] = fmaf(a.z, wv.z, part[r]);
               part[r] = fmaf(a.w, wv.w, part[r]);
             }
           }
+        } else {
+          // the last stage, k by k up to K: past K lie stale floats
+          // (skipping a zero term leaves the chain's bits as variant 0's
+          // zero-filled copy)
+          for (int kk = 0; kk < lim; ++kk) {
+            const float wv = wr[kk];
+#pragma unroll
+            for (int r = 0; r < RT; ++r)
+              part[r] = fmaf(xr[min(rg + G * r, B - 1) * row + kk], wv,
+                             part[r]);
+          }
         }
 #pragma unroll
-        for (int r = 0; r < FM_RT; ++r)
-          if (rg + r * G < B)
-            part_s[(n * spc + s) * B + rg + r * G] = part[r];
+        for (int r = 0; r < RT; ++r)
+          if (rg + G * r < B) part_s[(n * spc + s) * B + rg + G * r] = part[r];
       }
-      __syncthreads();
+      fm_consumers_sync();
+      PROBE_MARK(6, it);
+      // the slot is read: the producer may refill it
+      if (lane == 0) sm90::mbar_arrive(&empty[s_]);
       // each output's owner adds the chunk's stage totals in stage order
       const bool last = it % chunks == chunks - 1;
-      const int n0 = n0_of(it);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < FM_OWNED; ++i) {
         const int o = tid + i * FM_THREADS;
-        if (o >= cg * B) continue;
-        const int n = o / B, b = o % B;
-        const float* ps = part_s + n * spc * B + b;
-        // eight loads ahead of their adds; the adds stay in stage order
-        for (int s0 = 0; s0 < n_st; s0 += 8) {
-          float v[8];
+        if (o < cg * B) {
+          const int n = o / B, b = o % B;
+          const float* ps = part_s + n * spc * B + b;
+          // eight loads ahead of their adds; the adds stay in stage order
+          for (int s0 = 0; s0 < n_st; s0 += 8) {
+            float v[8];
 #pragma unroll
-          for (int u = 0; u < 8; ++u)
-            v[u] = s0 + u < n_st ? ps[(s0 + u) * B] : 0.f;
+            for (int u = 0; u < 8; ++u)
+              v[u] = s0 + u < n_st ? ps[(s0 + u) * B] : 0.f;
 #pragma unroll
-          for (int u = 0; u < 8; ++u)
-            if (s0 + u < n_st) tot[i] = __fadd_rn(tot[i], v[u]);
-        }
-        if (last) {
-          if (n0 + n < L.N)
-            fo.out[static_cast<size_t>(b) * fo.ldo + n0 + n] =
-                fc_apply(fo, fc_col(fo, n0 + n), tot[i]);
-          tot[i] = 0.f;
+            for (int u = 0; u < 8; ++u)
+              if (s0 + u < n_st) tot[i] = __fadd_rn(tot[i], v[u]);
+          }
+          if (last) {
+            if (n0 + n < L.N)
+              fo.out[static_cast<size_t>(b) * fo.ldo + n0 + n] =
+                  fc_apply(fo, col[i], tot[i]);
+            tot[i] = 0.f;
+          }
         }
       }
+      PROBE_MARK(7, it);
     }
-    sm90::cp_async_wait<0>();
-    // this layer's outputs are visible to every block before the next reads
-    grid.sync();
   }
+  PROBE_MARK(5, 0);
 }
 
 // The chunk depth and ring at B rows for a module whose deepest layer has
-// nk 32-deep stages: chunks as deep as two fit in shared memory (a layer in
-// as few chunks as possible, each block's loads in flight at once), then
-// as many chunks in flight as fit, FM_MAX_RING at most.
+// nk 32-deep stages: chunks as deep as FM_RING_TARGET fit in shared memory
+// beside the stage totals, then as many in flight as fit, FM_MAX_RING at
+// most.  The ring runs across layers: the next layer's weights stream in
+// while this one computes and syncs.
 void fm_shape(int B, int nk, int smem_optin, int* spc, int* ring) {
   const int floats = smem_optin / 4;
-  *spc = std::min({FM_MAX_SPC, nk,
-                   floats / (2 * fm_slot_floats(B, 1) +
-                             fm_partial_floats(B, 1))});
-  *ring = std::min(FM_MAX_RING, (floats - fm_partial_floats(B, *spc)) /
-                                    fm_slot_floats(B, *spc));
+  *spc = 1;
+  while (*spc < std::min(FM_MAX_SPC, nk) &&
+         fm_smem_floats(B, *spc + 1, FM_RING_TARGET) <= floats)
+    ++*spc;
+  *ring = FM_RING_TARGET;
+  while (*ring < FM_MAX_RING && fm_smem_floats(B, *spc, *ring + 1) <= floats)
+    ++*ring;
 }
 int fm_smem_bytes(int B, int spc, int ring) {
-  return (ring * fm_slot_floats(B, spc) + fm_partial_floats(B, spc)) * 4;
+  return fm_smem_floats(B, spc, ring) * 4;
+}
+// rows of a work item: the fewest row groups of at most 8 rows, evenly
+__host__ __device__ constexpr int fm_rt(int B) {
+  return (B + (B + 7) / 8 - 1) / ((B + 7) / 8);
+}
+
+template <int RT>
+cudaError_t module_launch(FmParams& p, const sm90::DeviceInfo& d,
+                          cudaStream_t stream) {
+  const int smem = fm_smem_bytes(p.B, p.spc, p.ring);
+  static cudaError_t attr =
+      sm90::allow_smem(fc_module_kernel<RT>, d.smem_optin);
+  if (attr != cudaSuccess) return attr;
+  int per_sm = 0;
+  cudaError_t err = sm90::resident_blocks(fc_module_kernel<RT>, d.dev,
+                                          FM_BLOCK, smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) return cudaErrorCooperativeLaunchTooLarge;
+  // one block per SM, even where more fit: a grid sync costs more with
+  // more blocks (a sweep of the launch shape on the H100, PERF.md §6)
+  void* args[] = {&p};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fc_module_kernel<RT>), dim3(d.sms),
+      dim3(FM_BLOCK), args, static_cast<size_t>(smem), stream);
 }
 }  // namespace
 
@@ -477,22 +640,19 @@ int fused_mlp_module(const void* table, int n_layers, const float* x,
   for (int l = 0; l < n_layers; ++l)
     nk = std::max(nk, (p.layers[l].K + 31) / 32);
   fm_shape(B, nk, d.smem_optin, &p.spc, &p.ring);
-  if (p.spc < 1 || p.ring < 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = fm_smem_bytes(B, p.spc, p.ring);
-  static cudaError_t attr = sm90::allow_smem(fc_module_kernel, d.smem_optin);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  int per_sm = 0;
-  err = sm90::resident_blocks(fc_module_kernel, d.dev, FM_THREADS, smem,
-                              &per_sm);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm == 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  // one block per SM, even where more fit: a grid sync costs more with
-  // more blocks (a sweep of the launch shape on the H100, PERF.md §6)
-  void* args[] = {&p};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fc_module_kernel), dim3(d.sms),
-      dim3(FM_THREADS), args, static_cast<size_t>(smem),
-      static_cast<cudaStream_t>(stream)));
+  if (fm_smem_bytes(B, p.spc, p.ring) > d.smem_optin)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (fm_rt(B)) {
+    case 1: return static_cast<int>(module_launch<1>(p, d, s));
+    case 2: return static_cast<int>(module_launch<2>(p, d, s));
+    case 3: return static_cast<int>(module_launch<3>(p, d, s));
+    case 4: return static_cast<int>(module_launch<4>(p, d, s));
+    case 5: return static_cast<int>(module_launch<5>(p, d, s));
+    case 6: return static_cast<int>(module_launch<6>(p, d, s));
+    case 7: return static_cast<int>(module_launch<7>(p, d, s));
+    default: return static_cast<int>(module_launch<8>(p, d, s));
+  }
 }
 
 // Bytes of one FmLayer entry, for the caller's check of its mirror.

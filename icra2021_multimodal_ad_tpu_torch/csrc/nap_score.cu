@@ -37,10 +37,16 @@
 //     Rounding x - mu once to bf16 instead is 3x closer to fp32 on the
 //     serving test's fit but leaves JAX's bf16 scorer (bf16(x), folded) by
 //     a mean relative 1.7e-2, where the port's contract is 1e-2.
-//   * fp32 sums K in one FMA chain in k order per output (the single-tile
-//     kernel this replaces: golden 1.1115e-3 against 2e-3); the tensor
-//     cores sum bf16 products in fp32, twice the product's operations (hi
-//     and lo) against each V^T box.
+//   * fp32 sums K in two levels: each 32-deep stage is its own FMA chain
+//     in k order from 0, and the stage totals are added with __fadd_rn to
+//     the running total in stage order, the order of csrc/fused_mlp.cu.
+//     scripts/golden_summation_study.py replays the orders exactly on the
+//     golden fixture (with the FC kernel's two-level diffs): one chain
+//     over K 1.009e-3, two levels 3.625e-4, against the 2e-3 contract; the
+//     card measured 5.435e-4 (PERF.md §6).  Two levels also let variant 4
+//     spread one output's K over threads and blocks.  The tensor cores
+//     sum bf16 products in fp32, twice the product's operations (hi and
+//     lo) against each V^T box.
 //   * The TPU kernel carries the row sum across J tiles in a revisited output
 //     block, which relies on its grid running in order.  Hopper's blocks run
 //     in no order, so the partial sums go to an (n_tiles, B) scratch and a
@@ -49,30 +55,42 @@
 //
 // Variant 4, fp32 at small batches (B <= SMALL_MAX_B), one cooperative
 // launch in place of the three launches above, bit-equal to variant 0:
-//   * Each block owns groups of jb columns of J and all B rows, and streams
-//     its V^T rows once through a ring of cp.async stages; every block of
-//     the grid reads V, where variant 0 at B = 10 and J = 400 ran 7 blocks.
-//   * Centring folds into the load: each thread copies some x elements and
-//     their mu, waits for its own copies and writes xc = x - mu (the one
-//     __fsub_rn of nap_center_kernel) in place before the stage's barrier.
-//     No xc scratch.
-//   * The K order stays: one fmaf chain over all of K in k order per
-//     (b, j), as variant 0.  That chain sets a latency floor of K dependent
-//     FMAs (~11 us at K = 5482), above the bytes bound at J = 400 (2.7 us).
-//   * The row sums keep variant 0's order: a grid sync, then one warp per
-//     (32-column tile, row) computes the tile's terms with nap_term's
-//     arithmetic, lane tx summing columns tx + 8 q in q order and the xor
-//     butterfly over 8 lanes; a second grid sync, then one thread per row
-//     adds the tile partials in tile order and divides by J, as
-//     nap_reduce_kernel.  No atomics, so the scores are bit-equal to
-//     variant 0, floored columns (inv_std = 0) included.
+//   * A work unit is a 32-column tile of J and a slice of K's 32-deep
+//     stages.  Where J has tiles for half the grid (J >= ~2100 on 132
+//     SMs) one slice covers K; else K splits into as many slices as fill
+//     the grid (J = 400: 13 tiles x 10 slices of 18 stages).
+//   * First the grid centres x once, xc = x - mu (the one __fsub_rn of
+//     nap_center_kernel), into 16-byte aligned rows of the scratch, and
+//     syncs.  A producer warp per block meanwhile has the first chunk's
+//     V^T rows in flight; it fills a ring of chunks (ch stages each) by
+//     bulk copies (cp.async.bulk) of the tile's V^T rows and the B centred
+//     rows, on full/empty mbarriers, and never waits on the consumers'
+//     work, only on a free slot.
+//   * Eight consumer warps take work items of RT rows x 4 columns x one
+//     stage, each output an fmaf chain of 32 in k order, and store the
+//     stage totals in shared memory; each output's owner adds a chunk's
+//     totals in stage order to its running total (one slice), or stores
+//     them to the scratch (split K), and after a grid sync a warp per
+//     (row, tile) adds all of K's totals from stage 0 in order.
+//   * The row sums keep variant 0's order: the tile's t^2 with nap_term's
+//     arithmetic (lane tx adds columns tx + 8 q in q order, then the xor
+//     butterfly over 8 lanes), a grid sync, then one thread per row adds
+//     the tile partials in tile order and divides by J.  No atomics, so
+//     the scores are bit-equal to variant 0, floored columns included.
+//   * What bounds it on the H100 (scripts/torch_small_kernel_probe.py,
+//     PERF.md §5-6): the design before it chained all of K per output
+//     (~11 us of dependent FMAs at K = 5482) through 43 stages of 1.1-3.3
+//     us.  Now, device ms at B = 1 / 10 / 32: J = 400 0.020 / 0.023 /
+//     0.032 (was 0.054 / 0.061 / 0.085; bytes bound 0.0027), where the
+//     first chunk (5-8 us, the centring sync included) and the fold after
+//     its own sync set most of it; J = 4096 0.058-0.061 / 0.069 / 0.105
+//     (bound 0.027), 22 chunks of 1.9-4.0 us, at B = 32 the items'
+//     shared-memory reads (12 float4 a 128 FMAs) holding the SM near 44 %
+//     of its FMAs (8-column items were slower).
 //   * The grid is what the occupancy query allows at the kernel's shared
 //     memory (cudaLaunchCooperativeKernel guarantees co-residency); a
 //     refused launch returns its error, there is no fallback.
-//   * Measured far above both bounds (PERF.md §6): ~0.05-0.06 ms at B <= 10
-//     and J = 400, the same with L2 warm, so each ring stage's fixed cost
-//     and the two grid syncs, not the bytes, set it.
-//
+
 // Bound on an H100 SXM (the operations at the 67 TFLOP/s fp32 non-tensor
 // rate or 989 TFLOP/s bf16; the bytes at 3.35 TB/s):
 //   * B = 4096, K = 5482, J = 4096: 2*B*K*J = 184 GFLOP, compute-bound at
@@ -86,12 +104,13 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "probe.cuh"
 #include "sm90_gemm.cuh"
 
 namespace {
 
-using NapNarrow = sm90::SimtTile<4, 4, 4, false>;
-using NapWide = sm90::SimtTile<8, 8, 4, false>;
+using NapNarrow = sm90::SimtTile<4, 4, 4, true>;
+using NapWide = sm90::SimtTile<8, 8, 4, true>;
 using NapNarrow16 = sm90::WgmmaTile<1, 64, 4, 2>;
 using NapWide16 = sm90::WgmmaTile<2, 256, 3, 2>;
 
@@ -231,13 +250,15 @@ __global__ void nap_reduce_kernel(const float* __restrict__ partial,
 // variant 4: fp32 small batches, one cooperative launch
 // ---------------------------------------------------------------------------
 
-constexpr int NS_THREADS = 256;
-constexpr int NS_BK = 128;           // k per stage
-constexpr int NS_LDS = NS_BK + 4;    // floats per shared row
-constexpr int NS_MAX_STAGES = 8;    // ring depth, as shared memory allows
-constexpr int NS_MAX_B = 64;         // KERNEL_MAX_B of ops/nap_kernel.py
-constexpr int NS_TILE = 32;          // columns per partial, variant 0's
-static_assert(NS_THREADS == 2 * NS_BK, "two owners per stage column");
+constexpr int NS_THREADS = 256;  // the consumers: 8 warps
+constexpr int NS_BLOCK = NS_THREADS + 32;  // and one producer warp
+constexpr int NS_TILE = 32;      // columns a unit and a partial (variant 0's)
+constexpr int NS_MAX_B = 64;     // KERNEL_MAX_B of ops/nap_kernel.py
+constexpr int NS_MAX_CH = 8;     // 32-deep stages per chunk, at most
+constexpr int NS_MAX_RING = 4;   // chunks in flight, at most
+constexpr int NS_PART_LD = 40;   // floats per (stage, row) of stage totals
+// outputs a consumer thread adds
+constexpr int NS_OWNED = NS_TILE * NS_MAX_B / NS_THREADS;
 
 struct NapSmall {
   const float* x;
@@ -245,218 +266,450 @@ struct NapSmall {
   const float* mu;
   const float* std_mu;
   const float* inv_std;
-  float* rot;      // (B, J) rotated rows, scratch
-  float* partial;  // (ceil(J / 32), B) tile partials, scratch
+  float* xc;       // (B, ldxc) centred rows, 16-byte aligned, zero past K
+  float* st;       // (B, n_tiles, nk, 32) stage totals, where K is split
+  //                  (slices > 1): task b * n_tiles + t's are contiguous
+  float* partial;  // (n_tiles, B) tile partials, n_tiles = ceil(J / 32)
   float* out;      // (B,)
-  int ldx, ldv, B, K, J;
-  int jb;          // columns per group; NS_THREADS / jb row groups
-  int stages;      // ring depth
+  int ldx, ldv, ldxc, B, K, J;
+  int slices;        // K slices: a unit is (32-column tile, K slice)
+  int slice_stages;  // 32-deep stages per slice
+  int ch;            // stages per chunk
+  int ring;          // chunks in flight
 };
 
-// one stage: jb V^T rows, B x rows, and each owner's mu, in floats
-__host__ __device__ constexpr int ns_stage_floats(int jb, int B) {
-  return (jb + B) * NS_LDS + NS_THREADS;
+// a shared row of one chunk: 32 * ch floats and 4 more, so that rows start
+// in different 16-byte bank groups (row / 4 is odd)
+__host__ __device__ constexpr int ns_row(int ch) { return 32 * ch + 4; }
+// one ring slot: B centred x rows, then 32 V^T rows
+__host__ __device__ constexpr int ns_slot_floats(int B, int ch) {
+  return (B + NS_TILE) * ns_row(ch);
+}
+// the chunk's stage totals, (ch, B, 32) in rows of NS_PART_LD
+__host__ __device__ constexpr int ns_part_floats(int B, int ch) {
+  return ch * B * NS_PART_LD;
+}
+// the slots, the stage totals and three mbarriers a slot (V^T rows in, x
+// rows in, slot free)
+__host__ __device__ constexpr int ns_smem_floats(int B, int ch, int ring) {
+  return (ring * ns_slot_floats(B, ch) + ns_part_floats(B, ch) + 1) / 2 * 2 +
+         6 * ring;
+}
+__host__ __device__ constexpr int ns_rt(int B) {
+  return B <= 8 ? 1 : B <= 16 ? 4 : 8;
+}
+// the centred rows' stride: K rounded up to 16 bytes
+__host__ __device__ constexpr int ns_ldxc(int K) { return (K + 3) / 4 * 4; }
+
+// Called by a whole warp for row b of the 32-column tile at j0, lane n
+// holding rot[b, j0 + n]: the tile's sum of t^2 in variant 0's order (lane
+// tx adds columns tx + 8 q in q order by fmaf, then the xor butterfly over
+// 8 lanes), valid in lane 0.
+__device__ __forceinline__ float ns_tile_sum(const NapSmall& p, float rot,
+                                             int j0, int lane) {
+  const int j = j0 + lane;
+  float tv = 0.f;
+  if (j < p.J)
+    tv = __fmul_rn(__fsub_rn(rot, __ldg(p.std_mu + j)), __ldg(p.inv_std + j));
+  const int tx = lane % 8;
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float tq = __shfl_sync(0xffffffffu, tv, tx + 8 * q);
+    if (j0 + tx + 8 * q < p.J) s = fmaf(tq, tq, s);
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off *= 2)
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+  return s;
 }
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
-                                          int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
+// the consumer warps' barrier (the producer warp runs on its own)
+__device__ __forceinline__ void ns_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NS_THREADS) : "memory");
 }
 
-// RT rows per thread at most: thread (c, g) = (tid % jb, tid / jb) computes
-// column j0 + c of rows g, g + G, ... (G = NS_THREADS / jb row groups)
+// RT rows per work item: item (cq, rg, s) is the 32-deep stage s of
+// columns cq + 8 c (c < 4) for rows rg + G r (r < RT, G = ceil(B / RT)),
+// each its own fmaf chain in k order from 0.  Warps 0-7 consume the ring,
+// warp 8 fills it by bulk copies.
 template <int RT>
-__global__ void __launch_bounds__(NS_THREADS)
+__global__ void __launch_bounds__(NS_BLOCK, 1)
 nap_small_kernel(const NapSmall p) {
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x;
-  const int stage = ns_stage_floats(p.jb, p.B);
-  const int n_groups = (p.J + p.jb - 1) / p.jb;
-  const int nk = (p.K + NS_BK - 1) / NS_BK;
-  const int blocks = gridDim.x, block = blockIdx.x;
-  const int mine = block < n_groups ? (n_groups - 1 - block) / blocks + 1 : 0;
-  const int total = mine * nk;
-  const int c = tid % p.jb, g = tid / p.jb, G = NS_THREADS / p.jb;
-  // this thread's x elements in a stage: column own_k, rows own_half + 2i
-  const int own_k = tid % NS_BK, own_half = tid / NS_BK;
-  auto vs = [&](int s) { return smem + s * stage; };
-  auto xs = [&](int s) { return smem + s * stage + p.jb * NS_LDS; };
-  auto ms = [&](int s) { return smem + s * stage + (p.jb + p.B) * NS_LDS; };
-  auto group = [&](int it) { return block + (it / nk) * blocks; };
-
-  auto load = [&](int it) {
-    const int s = it % p.stages, k0 = (it % nk) * NS_BK;
-    const int j0 = group(it) * p.jb;
-    float* v = vs(s);
-    for (int e = tid; e < p.jb * (NS_BK / 4); e += NS_THREADS) {
-      const int r = e / (NS_BK / 4), cc = 4 * (e % (NS_BK / 4));
-      const int j = j0 + r, k = k0 + cc;
-      const float* src = p.vt;
-      int bytes = 0;
-      if (j < p.J && k < p.K) {
-        src = p.vt + static_cast<size_t>(j) * p.ldv + k;
-        bytes = min(16, 4 * (p.K - k));
-      }
-      sm90::cp_async16(v + r * NS_LDS + cc, src, bytes);
-    }
-    const int k = k0 + own_k;
-    const bool in = k < p.K;
-    cp_async4(ms(s) + tid, in ? p.mu + k : p.mu, in ? 4 : 0);
-    float* x = xs(s);
-    for (int b = own_half; b < p.B; b += 2)
-      cp_async4(x + b * NS_LDS + own_k,
-                in ? p.x + static_cast<size_t>(b) * p.ldx + k : p.x,
-                in ? 4 : 0);
-  };
-  // xc = x - mu on this thread's own copies, which have landed
-  auto centre = [&](int s) {
-    const float m = ms(s)[tid];
-    float* x = xs(s);
-    for (int b = own_half; b < p.B; b += 2)
-      x[b * NS_LDS + own_k] = __fsub_rn(x[b * NS_LDS + own_k], m);
-  };
-
-  float acc[RT];
-#pragma unroll
-  for (int s = 0; s < p.stages - 1; ++s) {
-    if (s < total) load(s);
-    sm90::cp_async_commit();
-  }
-  for (int it = 0; it < total; ++it) {
-    sm90::cp_async_wait_upto(p.stages - 2);
-    centre(it % p.stages);
-    // every thread's centred copies are visible, and the stage read in the
-    // last iteration is free
-    __syncthreads();
-    if (it + p.stages - 1 < total) load(it + p.stages - 1);
-    sm90::cp_async_commit();
-    const int kt = it % nk;
-    if (kt == 0) {
-#pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r] = 0.f;
-    }
-    const float* v = vs(it % p.stages) + c * NS_LDS;
-    const float* x = xs(it % p.stages);
-    // the shared loads run PD steps of 4 k ahead of the chain, in a ring of
-    // registers (rows past B read row B - 1 and are never written out)
-    constexpr int STEPS = NS_BK / 4, PD = RT >= 4 ? 1 : 4 / RT;
-    float4 wq[PD + 1], aq[PD + 1][RT];
-    auto fetch = [&](int st, float4& w, float4 (&a)[RT]) {
-      w = *reinterpret_cast<const float4*>(v + 4 * st);
-#pragma unroll
-      for (int r = 0; r < RT; ++r)
-        a[r] = *reinterpret_cast<const float4*>(
-            x + min(g + r * G, p.B - 1) * NS_LDS + 4 * st);
-    };
-    // threads whose rows all lie past B have no chain
-#pragma unroll
-    for (int q = 0; q < PD; ++q)
-      if (g < p.B) fetch(q, wq[q], aq[q]);
-#pragma unroll
-    for (int st = 0; st < STEPS && g < p.B; ++st) {
-      if (st + PD < STEPS)
-        fetch(st + PD, wq[(st + PD) % (PD + 1)], aq[(st + PD) % (PD + 1)]);
-      const float4 w = wq[st % (PD + 1)];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const float4 a = aq[st % (PD + 1)][r];
-        acc[r] = fmaf(a.x, w.x, acc[r]);
-        acc[r] = fmaf(a.y, w.y, acc[r]);
-        acc[r] = fmaf(a.z, w.z, acc[r]);
-        acc[r] = fmaf(a.w, w.w, acc[r]);
-      }
-    }
-    const int j = group(it) * p.jb + c;
-    if (kt == nk - 1 && j < p.J) {
-#pragma unroll
-      for (int r = 0; r < RT; ++r)
-        if (g + r * G < p.B)
-          p.rot[static_cast<size_t>(g + r * G) * p.J + j] = acc[r];
-    }
-  }
-  sm90::cp_async_wait<0>();
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  grid.sync();
-
-  // one warp per (32-column tile, row): variant 0's epilogue order
-  const int lane = tid % 32, tx = lane % 8, warps = NS_THREADS / 32;
+  PROBE_DECL;
+  PROBE_MARK(1, 0);
+  const int tid = threadIdx.x, B = p.B, ch = p.ch, row = ns_row(ch);
+  const int slot = ns_slot_floats(B, ch);
+  float* part_s = smem + p.ring * slot;
+  // full_v[s]: slot s's V^T rows landed; full_x[s]: its x rows; empty[s]:
+  // the consumers are done with it
+  uint64_t* full_v = reinterpret_cast<uint64_t*>(
+      smem + ns_smem_floats(B, ch, p.ring) - 6 * p.ring);
+  uint64_t* full_x = full_v + p.ring;
+  uint64_t* empty = full_x + p.ring;
+  const int nk = (p.K + 31) / 32;
   const int n_tiles = (p.J + NS_TILE - 1) / NS_TILE;
-  for (int task = block * warps + tid / 32; task < n_tiles * p.B;
-       task += blocks * warps) {
-    const int t = task / p.B, b = task % p.B;
-    const int n = NS_TILE * t + lane;
-    float tv = 0.f;
-    if (n < p.J)
-      tv = __fmul_rn(__fsub_rn(__ldcg(p.rot + static_cast<size_t>(b) * p.J + n),
-                               __ldg(p.std_mu + n)),
-                     __ldg(p.inv_std + n));
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float tq = __shfl_sync(0xffffffffu, tv, tx + 8 * q);
-      if (NS_TILE * t + tx + 8 * q < p.J) s = fmaf(tq, tq, s);
+  const int units = n_tiles * p.slices;
+  const int blocks = gridDim.x, block = blockIdx.x;
+  const int mine = block < units ? (units - 1 - block) / blocks + 1 : 0;
+  const int cpu = (p.slice_stages + ch - 1) / ch;  // chunks per unit
+  const int total = mine * cpu;
+  const int G = (B + RT - 1) / RT;
+  const int lane = tid % 32, warp = tid / 32, warps = NS_BLOCK / 32;
+  const bool split = p.slices > 1;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (tid == 0) {
+    for (int i = 0; i < p.ring; ++i) {
+      sm90::mbar_init(&full_v[i], 1);
+      sm90::mbar_init(&full_x[i], 1);
+      sm90::mbar_init(&empty[i], NS_THREADS / 32);
     }
-#pragma unroll
-    for (int off = 1; off < 8; off *= 2)
-      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
-    if (lane == 0) p.partial[static_cast<size_t>(t) * p.B + b] = s;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  // iteration it: chunk it % cpu of unit `unit(it)`, whose tile is
+  // unit % n_tiles and whose slice is unit / n_tiles
+  auto unit = [&](int it) { return block + (it / cpu) * blocks; };
+  auto stage0 = [&](int it) {
+    return (unit(it) / n_tiles) * p.slice_stages + (it % cpu) * ch;
+  };
+  auto n_stages = [&](int it) {
+    const int end = min(nk, (unit(it) / n_tiles + 1) * p.slice_stages);
+    return max(0, min(ch, end - stage0(it)));
+  };
+  // the bytes of chunk it's rows, each up to K rounded up to 4 floats
+  // (what lies past K is never read, or zero), 0 for an empty chunk
+  auto row_bytes = [&](int it) {
+    const int k0 = 32 * stage0(it), n_st = n_stages(it);
+    return n_st > 0 ? 4 * min(32 * n_st, ns_ldxc(p.K) - k0) : 0;
+  };
+
+  if (warp == NS_THREADS / 32) {
+    // The producer: each chunk into its slot once the consumers have freed
+    // it, by bulk copies: the tile's V^T rows (rows past J skipped) on
+    // full_v, the B centred x rows on full_x.  The first chunk's V^T rows
+    // fly while the grid centres x.
+    auto load_v = [&](int it) {
+      const int s = it % p.ring, k0 = 32 * stage0(it);
+      const int j0 = (unit(it) % n_tiles) * NS_TILE;
+      const int rows = min(NS_TILE, p.J - j0), bytes = row_bytes(it);
+      if (lane == 0) sm90::mbar_expect_tx(&full_v[s], bytes * rows);
+      __syncwarp();
+      if (bytes > 0 && lane < rows)
+        sm90::bulk_load(smem + s * slot + B * row + lane * row,
+                        p.vt + static_cast<size_t>(j0 + lane) * p.ldv + k0,
+                        bytes, &full_v[s]);
+    };
+    auto load_x = [&](int it) {
+      const int s = it % p.ring, k0 = 32 * stage0(it), bytes = row_bytes(it);
+      if (lane == 0) sm90::mbar_expect_tx(&full_x[s], bytes * B);
+      __syncwarp();
+      if (bytes > 0)
+        for (int r = lane; r < B; r += 32)
+          sm90::bulk_load(smem + s * slot + r * row,
+                          p.xc + static_cast<size_t>(r) * p.ldxc + k0, bytes,
+                          &full_x[s]);
+    };
+    if (total > 0) load_v(0);
+    grid.sync();
+    // the centred rows the other blocks wrote, before the copy engine
+    // reads them; then chunk by chunk, so that no chunk's rows queue
+    // behind a later chunk's
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    for (int it = 0; it < total; ++it) {
+      if (it >= p.ring)
+        sm90::mbar_wait(&empty[it % p.ring], (it / p.ring - 1) & 1);
+      if (it > 0) load_v(it);
+      load_x(it);
+    }
+  } else {
+    // xc = x - mu, the one __fsub_rn of nap_center_kernel, once for the
+    // whole grid, into aligned rows zero past K
+    for (int e = block * NS_THREADS + tid; e < B * p.ldxc;
+         e += blocks * NS_THREADS) {
+      const int b = e / p.ldxc, k = e % p.ldxc;
+      p.xc[e] = k < p.K ? __fsub_rn(p.x[static_cast<size_t>(b) * p.ldx + k],
+                                    __ldg(p.mu + k))
+                        : 0.f;
+    }
+    // these writes come before the copy engine's reads of them
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    grid.sync();
+    // the running totals of the outputs this thread owns, (column o % 32,
+    // row o / 32) for o = tid + NS_THREADS i, where K is not split
+    float tot[NS_OWNED];
+#pragma unroll
+    for (int i = 0; i < NS_OWNED; ++i) tot[i] = 0.f;
+    for (int it = 0; it < total; ++it) {
+      const int s_ = it % p.ring, parity = (it / p.ring) & 1;
+      sm90::mbar_wait(&full_v[s_], parity);
+      sm90::mbar_wait(&full_x[s_], parity);
+      // also frees the stage totals read last
+      ns_consumers_sync();
+      PROBE_MARK(2, it);
+      const float* xs = smem + s_ * slot;
+      const float* vs = xs + B * row;
+      const int n_st = n_stages(it), st0 = stage0(it);
+      for (int w = tid; w < n_st * 8 * G; w += NS_THREADS) {
+        const int cq = w % 8, rg = (w / 8) % G, s = w / (8 * G);
+        const float* vr = vs + cq * row + 32 * s;
+        const float* xq = xs + 32 * s;
+        // the stage's depth: 32, or what is left of K in the last one
+        const int lim = min(32, p.K - 32 * (st0 + s));
+        float acc[RT][4];
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+        if (lim == 32) {
+#pragma unroll 2
+          for (int kk = 0; kk < 32; kk += 4) {
+            float4 v[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              v[c] = *reinterpret_cast<const float4*>(vr + 8 * c * row + kk);
+#pragma unroll
+            for (int r = 0; r < RT; ++r) {
+              // rows past B read row B - 1 and are never stored
+              const float4 a = *reinterpret_cast<const float4*>(
+                  xq + min(rg + G * r, B - 1) * row + kk);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                acc[r][c] = fmaf(a.x, v[c].x, acc[r][c]);
+                acc[r][c] = fmaf(a.y, v[c].y, acc[r][c]);
+                acc[r][c] = fmaf(a.z, v[c].z, acc[r][c]);
+                acc[r][c] = fmaf(a.w, v[c].w, acc[r][c]);
+              }
+            }
+          }
+        } else {
+          // the last stage, k by k up to K: past K lie stale floats
+          // (skipping a zero term leaves the chain's bits as variant 0's
+          // zero-filled copy)
+          for (int kk = 0; kk < lim; ++kk) {
+#pragma unroll
+            for (int r = 0; r < RT; ++r) {
+              const float a = xq[min(rg + G * r, B - 1) * row + kk];
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                acc[r][c] = fmaf(a, vr[8 * c * row + kk], acc[r][c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const int b = rg + G * r;
+          if (b < B) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              part_s[(s * B + b) * NS_PART_LD + cq + 8 * c] = acc[r][c];
+          }
+        }
+      }
+      ns_consumers_sync();
+      PROBE_MARK(6, it);
+      // the slot is read: the producer may refill it
+      if (lane == 0) sm90::mbar_arrive(&empty[s_]);
+      // each output's owner takes the chunk's stage totals in stage order:
+      // adds them to its running total, or, where K is split, stores them
+      const int j0 = (unit(it) % n_tiles) * NS_TILE;
+      const bool last = it % cpu == cpu - 1;
+#pragma unroll
+      for (int i = 0; i < NS_OWNED; ++i) {
+        // whole warps: 32 divides NS_TILE * B
+        const int o = tid + i * NS_THREADS;
+        if (o < NS_TILE * B) {
+          const int n = o % NS_TILE, b = o / NS_TILE;
+          float v[NS_MAX_CH];
+#pragma unroll
+          for (int s = 0; s < NS_MAX_CH; ++s)
+            v[s] = s < n_st ? part_s[(s * B + b) * NS_PART_LD + n] : 0.f;
+          if (split) {
+            float* dst = p.st + ((static_cast<size_t>(b) * n_tiles +
+                                  j0 / NS_TILE) * nk + st0) * NS_TILE + n;
+#pragma unroll
+            for (int s = 0; s < NS_MAX_CH; ++s)
+              if (s < n_st) dst[s * NS_TILE] = v[s];
+          } else {
+#pragma unroll
+            for (int s = 0; s < NS_MAX_CH; ++s)
+              if (s < n_st) tot[i] = __fadd_rn(tot[i], v[s]);
+            if (last) {
+              const float t = ns_tile_sum(p, tot[i], j0, n);
+              if (n == 0)
+                p.partial[static_cast<size_t>(unit(it) % n_tiles) * B + b] =
+                    t;
+              tot[i] = 0.f;
+            }
+          }
+        }
+      }
+      PROBE_MARK(7, it);
+    }
+  }
+  if (split) {
+    PROBE_MARK(3, 0);
+    grid.sync();
+    PROBE_MARK(4, 0);
+    // (row, tile) tasks, b * n_tiles + t, a warp's each: a block takes
+    // ceil(tasks / blocks) of them, copies `batch` tasks' stage totals at
+    // a time into shared memory (the ring's, free now) with every thread's
+    // loads in flight, then lane n of each warp adds column n's in stage
+    // order from stage 0, and the warp takes the tile's sum
+    constexpr int U = 24;  // loads in flight per thread
+    const int per_task = nk * NS_TILE, tasks = n_tiles * B;
+    const int per_block = (tasks + blocks - 1) / blocks;
+    const int batch = min(warps, (ns_smem_floats(B, ch, p.ring) -
+                                  6 * p.ring) / per_task);
+    const int end = min(tasks, (block + 1) * per_block);
+    for (int t0 = block * per_block; t0 < end; t0 += batch) {
+      const int n_tasks = min(batch, end - t0), n = n_tasks * per_task;
+      const float* src = p.st + static_cast<size_t>(t0) * per_task;
+      for (int base = 0; base < n; base += U * NS_BLOCK) {
+        float v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = base + tid + u * NS_BLOCK;
+          v[u] = e < n ? __ldcg(src + e) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = base + tid + u * NS_BLOCK;
+          if (e < n) smem[e] = v[u];
+        }
+      }
+      __syncthreads();
+      if (warp < n_tasks) {
+        const int task = t0 + warp, t = task % n_tiles, b = task / n_tiles;
+        const float* tot_s = smem + warp * per_task + lane;
+        float acc = 0.f;
+        for (int s = 0; s < nk; ++s) acc = __fadd_rn(acc, tot_s[s * NS_TILE]);
+        const float sum = ns_tile_sum(p, acc, NS_TILE * t, lane);
+        if (lane == 0) p.partial[static_cast<size_t>(t) * B + b] = sum;
+      }
+      __syncthreads();
+    }
+  }
+  PROBE_MARK(3, 1);
   grid.sync();
+  PROBE_MARK(4, 1);
   // one thread per row: the tile partials in tile order, then / J
-  const int b = block * NS_THREADS + tid;
-  if (b < p.B) {
+  const int b = block * NS_BLOCK + tid;
+  if (b < B) {
     float s = 0.f;
     for (int t = 0; t < n_tiles; ++t)
-      s = __fadd_rn(s, __ldcg(p.partial + static_cast<size_t>(t) * p.B + b));
+      s = __fadd_rn(s, __ldcg(p.partial + static_cast<size_t>(t) * B + b));
     p.out[b] = __fdiv_rn(s, static_cast<float>(p.J));
   }
+  PROBE_MARK(5, 0);
 }
 
-int floor_pow2(int v) {
-  int p = 1;
-  while (2 * p <= v) p *= 2;
-  return p;
+// The launch shape of variant 4 at (B, K, J) on device d: the chunk depth
+// (enough work items for the consumer threads), the ring that fits beside
+// it, the grid the occupancy query allows, and the K split: one slice
+// where there are tiles for half the grid, else as many slices as fill
+// it.  Also the scratch it needs, in floats.
+// The chunk depth and ring at B rows in `floats` of shared memory: the
+// stages whose items fill the consumers once, then the deepest multiple of
+// them (NS_MAX_CH at most) that two slots hold, then as many slots as fit
+// (NS_MAX_RING at most); the ring is 0 where two slots do not fit.
+void ns_ring(int B, int floats, int* ch, int* ring) {
+  const int G = (B + ns_rt(B) - 1) / ns_rt(B);
+  const int ch0 = std::max(1, std::min(NS_MAX_CH, NS_THREADS / (8 * G)));
+  *ch = ch0;
+  while (*ch + ch0 <= NS_MAX_CH && ns_smem_floats(B, *ch + ch0, 2) <= floats)
+    *ch += ch0;
+  *ring = ns_smem_floats(B, *ch, 2) <= floats ? 2 : 0;
+  while (*ring && *ring < NS_MAX_RING &&
+         ns_smem_floats(B, *ch, *ring + 1) <= floats)
+    ++*ring;
+}
+
+template <int RT>
+cudaError_t small_shape(NapSmall* p, const sm90::DeviceInfo& d, int* grid,
+                        int* smem, long long* scratch) {
+  const int B = p->B;
+  int ch = 0, ring = 0;
+  ns_ring(B, d.smem_optin / 4, &ch, &ring);
+  if (ring == 0) return cudaErrorInvalidValue;
+  p->ch = ch;
+  p->ring = ring;
+  *smem = ns_smem_floats(B, ch, ring) * 4;
+  static cudaError_t attr =
+      sm90::allow_smem(nap_small_kernel<RT>, d.smem_optin);
+  if (attr != cudaSuccess) return attr;
+  int per_sm = 0;
+  cudaError_t err = sm90::resident_blocks(nap_small_kernel<RT>, d.dev,
+                                          NS_BLOCK, *smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) return cudaErrorCooperativeLaunchTooLarge;
+  const int cap = per_sm * d.sms;
+  const int nk = (p->K + 31) / 32, n_tiles = (p->J + NS_TILE - 1) / NS_TILE;
+  int slices = 1;
+  if (2 * n_tiles < cap) slices = std::max(1, cap / n_tiles);
+  p->slice_stages = (nk + slices - 1) / slices;
+  p->slices = (nk + p->slice_stages - 1) / p->slice_stages;
+  // where K is split, the fold stages at least one task's stage totals in
+  // the ring's shared memory
+  if (p->slices > 1 && ns_smem_floats(B, ch, ring) - 6 * ring < nk * NS_TILE)
+    return cudaErrorInvalidValue;
+  *grid = std::min(n_tiles * p->slices, cap);
+  *scratch = static_cast<long long>(B) * ns_ldxc(p->K) +
+             static_cast<long long>(n_tiles) * B +
+             (p->slices > 1 ? static_cast<long long>(nk) * B * n_tiles *
+                                  NS_TILE
+                            : 0);
+  return cudaSuccess;
 }
 
 template <int RT>
 cudaError_t small_launch(NapSmall p, const sm90::DeviceInfo& d,
                          cudaStream_t stream) {
-  const int smem_optin = d.smem_optin, sms = d.sms;
-  // rows per thread at most RT: enough row groups, then the widest column
-  // group that still spreads J over every SM and fits in shared memory
-  const int g_need = (p.B + RT - 1) / RT;
-  const int want = std::max(4, (p.J + sms - 1) / sms);
-  int jb = std::min(floor_pow2(NS_THREADS / g_need), 2 * floor_pow2(want - 1));
-  jb = std::max(jb, 4);
-  while (jb > 4 && 2 * ns_stage_floats(jb, p.B) * 4 > smem_optin) jb /= 2;
-  p.jb = jb;
-  // the deepest ring that fits, NS_MAX_STAGES at most
-  p.stages = std::min(NS_MAX_STAGES, smem_optin / (ns_stage_floats(jb, p.B) * 4));
-  if (p.stages < 2) return cudaErrorInvalidValue;
-  const int smem = p.stages * ns_stage_floats(jb, p.B) * 4;
-  static cudaError_t attr =
-      sm90::allow_smem(nap_small_kernel<RT>, smem_optin);
-  if (attr != cudaSuccess) return attr;
-  int per_sm = 0;
-  cudaError_t err = sm90::resident_blocks(nap_small_kernel<RT>, d.dev,
-                                          NS_THREADS, smem, &per_sm);
+  int grid = 0, smem = 0;
+  long long scratch = 0;
+  cudaError_t err = small_shape<RT>(&p, d, &grid, &smem, &scratch);
   if (err != cudaSuccess) return err;
-  if (per_sm == 0) return cudaErrorCooperativeLaunchTooLarge;
-  const int n_groups = (p.J + jb - 1) / jb;
-  const int grid = std::min(n_groups, per_sm * sms);
+  // the centred rows first, at the scratch's (16-byte aligned) start, then
+  // the stage totals, then the partials
+  p.ldxc = ns_ldxc(p.K);
+  p.xc = p.st;
+  p.st = p.xc + static_cast<size_t>(p.B) * p.ldxc;
+  const size_t n_tiles = (p.J + NS_TILE - 1) / NS_TILE;
+  p.partial = p.st + (p.slices > 1 ? static_cast<size_t>((p.K + 31) / 32) *
+                                         p.B * n_tiles * NS_TILE
+                                   : 0);
   void* args[] = {&p};
   return cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(nap_small_kernel<RT>), dim3(grid),
-      dim3(NS_THREADS), args, static_cast<size_t>(smem), stream);
+      dim3(NS_BLOCK), args, static_cast<size_t>(smem), stream);
 }
 
-// Variant 4 on the current device.  RT, the rows per thread, is the
-// smallest of 1, 2, 4, 8 whose ceil(B / RT) x J threads fit in one
-// 256-thread block per SM (8 at most): few rows per thread where there are
-// few columns, so that every SM has chains to run.
+// The scratch, in floats, that variant 4 needs at (B, K, J) on the current
+// device; -1 for arguments it does not take.
+long long small_scratch(int B, int K, int J) {
+  if (B < 1 || B > NS_MAX_B || K < 1 || J < 1) return -1;
+  sm90::DeviceInfo d;
+  if (sm90::device_info(&d) != cudaSuccess) return -1;
+  NapSmall p{};
+  p.B = B;
+  p.K = K;
+  p.J = J;
+  int grid = 0, smem = 0;
+  long long scratch = -1;
+  cudaError_t err;
+  switch (ns_rt(B)) {
+    case 1: err = small_shape<1>(&p, d, &grid, &smem, &scratch); break;
+    case 4: err = small_shape<4>(&p, d, &grid, &smem, &scratch); break;
+    default: err = small_shape<8>(&p, d, &grid, &smem, &scratch); break;
+  }
+  return err == cudaSuccess ? scratch : -1;
+}
+
+// Variant 4 on the current device: `scratch` holds small_scratch(B, K, J)
+// floats, 16-byte aligned: the centred rows, the stage totals (where K is
+// split), the tile partials.  RT, the rows of a
+// work item, grows with B (ns_rt).
 cudaError_t nap_small(const float* x, int ldx, const float* vt, int ldv,
                       const float* mu, const float* std_mu,
                       const float* inv_std, float* scratch, float* out,
@@ -466,16 +719,21 @@ cudaError_t nap_small(const float* x, int ldx, const float* vt, int ldv,
   sm90::DeviceInfo d;
   cudaError_t err = sm90::device_info(&d);
   if (err != cudaSuccess) return err;
-  const NapSmall p{x,  vt, mu, std_mu, inv_std, scratch,
-                   scratch + static_cast<size_t>(B) * J, out, ldx, ldv, B,
-                   K, J, 0, 0};
-  int rt = 1;
-  while (rt < 8 && static_cast<long long>((B + rt - 1) / rt) * J >
-                       static_cast<long long>(d.sms) * NS_THREADS)
-    rt *= 2;
-  switch (rt) {
+  NapSmall p{};
+  p.x = x;
+  p.vt = vt;
+  p.mu = mu;
+  p.std_mu = std_mu;
+  p.inv_std = inv_std;
+  p.st = scratch;
+  p.out = out;
+  p.ldx = ldx;
+  p.ldv = ldv;
+  p.B = B;
+  p.K = K;
+  p.J = J;
+  switch (ns_rt(B)) {
     case 1: return small_launch<1>(p, d, stream);
-    case 2: return small_launch<2>(p, d, stream);
     case 4: return small_launch<4>(p, d, stream);
     default: return small_launch<8>(p, d, stream);
   }
@@ -524,7 +782,7 @@ cudaError_t product_wgmma(const void* xc, int ldxc, const void* vt, int ldv,
 extern "C" {
 
 // Columns of the centred-row scratch xc that `variant` needs for depth K
-// (variant 4 centres on load and needs none).
+// (variant 4 centres into its own scratch and needs none).
 int nap_score_xc_cols(int variant, int K) {
   if (variant == 4) return 0;
   return (variant == 2 || variant == 3) ? lo_column(K) + K : K;
@@ -551,12 +809,11 @@ int nap_score_tile_j(int variant) {
 // bf16 (nap_score_xc_cols), and partial
 // (ceil(J / nap_score_tile_j(variant)), B) fp32.  ldv and ldxc are
 // multiples of 16 bytes and every row is 16-byte aligned.  Variant 4
-// takes 1 <= B <= 64, reads x in 4-byte copies (any ldx), ignores xc and
-// uses `partial` as its one scratch of B * J + ceil(J / 32) * B floats.
-// Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError() after the
-// launches (or cudaErrorInvalidValue for an unknown variant or a tensor map
-// the driver refuses).
+// takes 1 <= B <= 64 and any ldx, ignores xc and uses `partial`, 16-byte
+// aligned, as its one scratch of nap_score_small_scratch(B, K, J) floats.
+// Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launches (or cudaErrorInvalidValue for an
+// unknown variant or a tensor map the CUDA driver refuses).
 int nap_score(int variant, const float* x, int ldx, const void* vt, int ldv,
               const float* mu, const float* std_mu, const float* inv_std,
               void* xc, int ldxc, float* partial, float* out, int B, int K,
@@ -586,17 +843,31 @@ int nap_score(int variant, const float* x, int ldx, const void* vt, int ldv,
 }
 
 // Dynamic shared memory one block of `variant`'s tile product launches
-// with (variant 4: at most); 0 if unknown.
+// with (variant 4: at B = 10); 0 if unknown.
 int nap_score_smem_bytes(int variant) {
   switch (variant) {
     case 0: return NapNarrow::SMEM_BYTES;
     case 1: return NapWide::SMEM_BYTES;
     case 2: return NapNarrow16::SMEM_BYTES;
     case 3: return NapWide16::SMEM_BYTES;
-    // at B = 64 and 32-column groups (J >= 4096 on 132 SMs), its largest
-    case 4: return 4 * ns_stage_floats(32, NS_MAX_B) * 4;
+    // at the robot's B = 10, on the current device
+    case 4: {
+      sm90::DeviceInfo d;
+      if (sm90::device_info(&d) != cudaSuccess) return 0;
+      int ch = 0, ring = 0;
+      ns_ring(10, d.smem_optin / 4, &ch, &ring);
+      return ns_smem_floats(10, ch, ring) * 4;
+    }
     default: return 0;
   }
+}
+
+// Floats of scratch variant 4 takes at (B, K, J) on the current device
+// (the centred rows, the stage totals where it splits K, the tile
+// partials); -1 for
+// arguments it does not take or a failed device query.
+long long nap_score_small_scratch(int B, int K, int J) {
+  return small_scratch(B, K, J);
 }
 
 const char* nap_score_error_string(int err) {

@@ -16,7 +16,12 @@ on the CUDA cores or bf16 on the tensor cores, 64 x 64 tiles at small
 batches or 128 x 128 tiles at large ones, and `module_forward_taps` loops
 over a module's layers.  Per module (`fused_mlp_module`, variant 4): an
 fp32 module at B <= SMALL_MAX_B runs every layer in one cooperative
-launch, the TPU kernel's own fusion, with outputs bit-equal to variant 0's.
+launch, the TPU kernel's own fusion, with outputs bit-equal to variant 0's:
+a producer warp per SM streams each block's weight rows by bulk copies
+through a ring that runs across layers (the next layer's weights arrive
+while this one computes and syncs; only its inputs wait for the grid
+sync), and the consumer warps split each output's K into 32-deep stages,
+their totals added in stage order (see the source note).
 `variant_for` picks by type and batch, and whether a whole module runs:
 `module_forward_taps` takes the module launch for a CUDA fp32 pack at B <=
 SMALL_MAX_B unless it is given a `layer_fn`, and a single layer takes

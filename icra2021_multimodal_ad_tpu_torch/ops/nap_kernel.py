@@ -17,9 +17,13 @@ Each call picks one of five variants by type and batch (`variant_for`):
 fp32 on the CUDA cores or bf16 on the tensor cores, 64 x 64 tiles at small
 batches, 128 x 128 (fp32) or 128 x 256 (bf16) tiles at large ones, each a
 centring launch, the tile product and a reduction launch; and variant 4,
-fp32 at B <= SMALL_MAX_B in one cooperative launch that centres on load
-and reduces in the same launch, bit-equal to variant 0.  The kernel
-centres x first: an fp32 pack multiplies x - rot_mu; a bf16 pack
+fp32 at B <= SMALL_MAX_B in one cooperative launch that centres, multiplies
+and reduces, bit-equal to variant 0.  Every fp32
+variant sums K in two levels, each 32-deep stage its own chain and the
+stage totals added in stage order; variant 4 spreads the stages of one
+output over threads and, where J is small, over blocks (its scratch then
+holds every stage total: `nap_score_small_scratch` in the source).  The
+kernel centres x first: an fp32 pack multiplies x - rot_mu; a bf16 pack
 rounds x to bf16, centres it in fp32 and multiplies both bf16 halves of the
 result, hi = bf16(xc) and lo = bf16(xc - hi), by the bf16 rotation with
 fp32 accumulation (see `nap_score_plain` and the source note).
@@ -139,11 +143,24 @@ def _lib() -> ctypes.CDLL:
         lib.nap_score_xc_cols.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.nap_score_error_string.argtypes = [ctypes.c_int]
         lib.nap_score_error_string.restype = ctypes.c_char_p
+        lib.nap_score_small_scratch.argtypes = [ctypes.c_int] * 3
+        lib.nap_score_small_scratch.restype = ctypes.c_longlong
         # the per-variant queries, asked once when the library loads
         lib.tile_j = {v: lib.nap_score_tile_j(v)
                       for v in (*VARIANTS.values(), SMALL_VARIANT)}
         lib.xc_cols = functools.lru_cache(maxsize=None)(lib.nap_score_xc_cols)
+        lib.small_scratch = functools.lru_cache(maxsize=None)(_small_scratch)
     return lib
+
+
+def _small_scratch(device: int, b: int, k: int, j: int) -> int:
+    """Floats of variant 4's scratch at (b, k, j) on CUDA device `device`:
+    its launch shape (and whether it splits K) follows the card's SMs."""
+    with torch.cuda.device(device):
+        n = _build.load("nap_score").nap_score_small_scratch(b, k, j)
+    if n < 0:
+        raise RuntimeError(f"nap_score variant 4 takes no ({b}, {k}, {j})")
+    return n
 
 
 def nap_score(pack: NapPack, x: torch.Tensor,
@@ -177,13 +194,15 @@ def nap_score(pack: NapPack, x: torch.Tensor,
     if b == 0:
         return torch.empty(0, dtype=torch.float32, device=x.device)
     lib = _lib()
-    n_tiles = -(-pack.j // lib.tile_j[variant])
     if variant == SMALL_VARIANT:
-        # one scratch: the scores, the (B, J) rotated rows, the partials
-        buf = torch.empty(b + b * pack.j + n_tiles * b, dtype=torch.float32,
-                          device=x.device)
-        out, partial, xc, ldxc = buf[:b], buf[b:], None, 0
+        # one allocation: the kernel's scratch at its (16-byte aligned)
+        # start (the centred rows, the stage totals where the launch splits
+        # K, the tile partials), then the scores
+        n = lib.small_scratch(x.device.index, b, pack.k, pack.j)
+        buf = torch.empty(n + b, dtype=torch.float32, device=x.device)
+        partial, out, xc, ldxc = buf[:n], buf[n:], None, 0
     else:
+        n_tiles = -(-pack.j // lib.tile_j[variant])
         out = torch.empty(b, dtype=torch.float32, device=x.device)
         xc = _build.padded_empty(b, lib.xc_cols(variant, pack.k), dtype,
                                  x.device)
