@@ -1,0 +1,30 @@
+"""The precisions the reference runs in: float64 as the reference, and the
+controls' step below the configurations' fp32 with TF32 off, which is fp32
+storage with TF32 matrix products and convolutions on the card."""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+#: name -> (storage dtype, TF32 products)
+PRECISIONS = {"float64": (torch.float64, False),
+              "float32": (torch.float32, False),
+              "tf32": (torch.float32, True)}
+
+
+@contextlib.contextmanager
+def precision(name: str):
+    """Yields the storage dtype of `name`, with TF32 set as it asks for the
+    block and restored after."""
+    dtype, tf32 = PRECISIONS[name]
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield dtype
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before

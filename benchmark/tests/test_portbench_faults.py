@@ -1,0 +1,117 @@
+"""A whole run at tiny sizes on the CPU, past the harness's look for a
+card: sound, it comes out correct; with the timed path broken underneath,
+once for each fault the cell can have, it comes out not correct."""
+
+import math
+import time
+
+import pytest
+import torch
+
+from benchmark.controls.faults import FAULTS, planted
+from benchmark.harness import cli
+from benchmark.harness.manifest import Manifest
+
+PORT = "icra2021_multimodal_ad_tpu_torch"
+SEED = 2 ** 31 + 11
+SIZES = {
+    "all_1728.tick_nap": {
+        "config": {"n_layers": 2, "btl_size": 16, "nap_fit_rows": 96},
+        "traffic": {"pool_steps": 64, "warmup_ticks": 2, "trace_ticks": 2,
+                    "check_ticks": 4}},
+    "hand_camera_1024.score_offline": {
+        "config": {"input_size": 64, "n_layers": 3, "btl_size": 8,
+                   "nap_fit_rows": 256, "batch_size": 100},
+        "traffic": {"chunk": 100, "test_windows": 250}},
+    "all_1728.train": {
+        "config": {"input_size": 48, "n_layers": 3, "btl_size": 8,
+                   "batch_size": 64, "n_epochs": 3},
+        "traffic": {"train_windows": 200, "valid_windows": 70}},
+}
+
+
+def _run(cell, trace=False):
+    manifest = Manifest(cli.__file__.rsplit("/benchmark/", 1)[0])
+    return cli.run_cell(manifest, cell, SEED, 0.2, trace, "cpu",
+                        time.perf_counter(), SIZES[cell])
+
+
+@pytest.mark.parametrize("cell", sorted(SIZES))
+def test_a_sound_run_is_correct(cell):
+    result = _run(cell, trace=True)
+    assert result["correct"], result["checks"]
+    assert result["failed"] == 0 and result["attempted"] > 0
+    assert list(result)[-1] == "checks"
+
+
+def _altered(fn, index):
+    """`fn` with one answer of its result altered by 1 %."""
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        first = out[0] if isinstance(out, tuple) else out
+        first = first.clone()
+        first[index] *= 1.01
+        return (first, *out[1:]) if isinstance(out, tuple) else first
+    return wrapped
+
+
+def test_a_tick_altered_where_it_is_produced_is_caught(monkeypatch):
+    import icra2021_multimodal_ad_tpu_torch.data.streaming as streaming
+
+    monkeypatch.setattr(streaming, "_tick_nap",
+                        _altered(streaming._tick_nap, 3))
+    assert not _run("all_1728.tick_nap")["correct"]
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_a_score_altered_where_it_is_produced_is_caught(monkeypatch, which):
+    from icra2021_multimodal_ad_tpu_torch.ops import serving
+
+    fn = serving.ServingModel.score_nap_windows_with_loss
+
+    def wrapped(self, x):
+        out = list(fn(self, x))
+        out[which] = out[which].clone()
+        out[which][5] *= 1.01
+        return tuple(out)
+
+    monkeypatch.setattr(serving.ServingModel, "score_nap_windows_with_loss",
+                        wrapped)
+    result = _run("hand_camera_1024.score_offline")
+    assert not result["correct"], result["checks"]
+
+
+@pytest.mark.parametrize("cell", ["all_1728.tick_nap",
+                                  "hand_camera_1024.score_offline"])
+def test_a_nap_fit_turned_off_its_axes_is_caught(monkeypatch, cell):
+    """A fit whose rotation turns its first direction a little towards a
+    middle one, of far smaller variance: the program's scores follow that
+    fit, so `nap_score_gap` cannot see it; the fit held to the one the
+    reference makes itself (`fit_whiten_gap`) does."""
+    from icra2021_multimodal_ad_tpu_torch.ops import scoring
+
+    fit = scoring.nap_fit
+
+    def turned(*args, **kwargs):
+        stats = fit(*args, **kwargs)
+        v = stats.rotater.v.clone()
+        mid = v.shape[1] // 2
+        c, s = math.cos(0.05), math.sin(0.05)
+        v[:, 0], v[:, mid] = (c * v[:, 0] + s * v[:, mid],
+                              c * v[:, mid] - s * v[:, 0])
+        return stats._replace(rotater=stats.rotater._replace(v=v))
+
+    monkeypatch.setattr(scoring, "nap_fit", turned)
+    checks = _run(cell)["checks"]
+    assert checks["nap_score_gap"]["value"] <= checks["nap_score_gap"][
+        "limit"]
+    assert checks["fit_whiten_gap"]["value"] > checks["fit_whiten_gap"][
+        "limit"]
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_a_broken_training_step_is_caught(fault):
+    """Each fault acts only in the epochs the card replays as graphs."""
+    with planted(fault):
+        result = _run("all_1728.train")
+    assert not result["correct"], (fault, result["checks"])
