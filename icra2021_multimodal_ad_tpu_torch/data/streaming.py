@@ -58,6 +58,7 @@ from icra2021_multimodal_ad_tpu_torch.ops.scoring import NapStats
 from icra2021_multimodal_ad_tpu_torch.utils import fp32  # noqa: F401
 from icra2021_multimodal_ad_tpu_torch.utils.device import resolve_device
 from icra2021_multimodal_ad_tpu_torch.utils.graphs import Program
+from icra2021_multimodal_ad_tpu_torch.utils.profiling import span
 
 #: slots of each program: a pipelined tick replays into one while the tick
 #: before it is collected from the other
@@ -406,21 +407,24 @@ class StreamingDetector:
         waiting for it: the ring snapshots are stacked straight into the
         slot's pinned staging, and MFCC frames other than the detector's
         own (an MFCC program's output) are copied there first."""
-        _check_rows(self.config, force_q, hand_q, depth_q, mic_frames)
-        self._check_nap(nap)
-        program = self._tick_program(nap, hand_q, depth_q)
-        _stack_host_inputs(self.config, force_q, hand_q, depth_q,
-                           mic_frames, out=program.staging(slot))
-        if mic_frames is not self._mic:
-            self._mic.copy_(mic_frames if isinstance(mic_frames, torch.Tensor)
-                            else torch.from_numpy(np.array(
-                                mic_frames, dtype=np.float32)))
+        with span("tick.stage"):
+            _check_rows(self.config, force_q, hand_q, depth_q, mic_frames)
+            self._check_nap(nap)
+            program = self._tick_program(nap, hand_q, depth_q)
+            _stack_host_inputs(self.config, force_q, hand_q, depth_q,
+                               mic_frames, out=program.staging(slot))
+            if mic_frames is not self._mic:
+                self._mic.copy_(
+                    mic_frames if isinstance(mic_frames, torch.Tensor)
+                    else torch.from_numpy(np.array(mic_frames,
+                                                   dtype=np.float32)))
         program.launch(slot)
         return _Tick(program, slot)
 
     @staticmethod
     def _scores(tick: _Tick) -> np.ndarray:
-        tick.program.wait(tick.slot)
+        with span("tick.wait"):
+            tick.program.wait(tick.slot)
         return tick.program.output(tick.slot).numpy().copy()
 
     def score_queues(self, force_q, hand_q, depth_q, mic_frames,
@@ -434,20 +438,26 @@ class StreamingDetector:
     def _issue(self, slot: int, force_q, hand_q, depth_q, mic_chunks,
                nap: bool, start_s: Optional[float] = None) -> _Tick:
         """A whole tick into `slot`: the mic's floored wave into its MFCC
-        program's staging, that program's replay, then the tick's."""
+        program's staging, that program's replay, then the tick's.  The
+        host stages the tick program's inputs while the MFCC replay runs,
+        so that staging's span (`tick.stage`) nests inside `tick.launch`,
+        which runs from the first replay's launch to the second's."""
         if self._issued is not None:
             self._issued[slot].record(torch.cuda.current_stream(self.device))
         issued_s = time.perf_counter()
-        wave = floored_wave(mic_chunks, self.config,
-                            length=self.config.batch_size / 10.0)
-        if len(wave) not in self._mfcc_programs:
-            self._mfcc_programs[len(wave)] = mfcc_program(
-                len(wave), self.config.batch_size, self._mic, slots=SLOTS)
-        mfcc = self._mfcc_programs[len(wave)]
-        mfcc.staging(slot)[0][:] = wave
-        mfcc.launch(slot)
-        tick = self.dispatch_queues(force_q, hand_q, depth_q, self._mic,
-                                    nap=nap, slot=slot)
+        with span("tick.mfcc_stage"):
+            wave = floored_wave(mic_chunks, self.config,
+                                length=self.config.batch_size / 10.0)
+            if len(wave) not in self._mfcc_programs:
+                self._mfcc_programs[len(wave)] = mfcc_program(
+                    len(wave), self.config.batch_size, self._mic,
+                    slots=SLOTS)
+            mfcc = self._mfcc_programs[len(wave)]
+            mfcc.staging(slot)[0][:] = wave
+        with span("tick.launch"):
+            mfcc.launch(slot)
+            tick = self.dispatch_queues(force_q, hand_q, depth_q, self._mic,
+                                        nap=nap, slot=slot)
         return tick._replace(start_s=start_s, issued_s=issued_s)
 
     def score_rings(self, force_q, hand_q, depth_q, mic_chunks,
@@ -508,16 +518,18 @@ class StreamingDetector:
         either mode), so its `issued` event fired at its host issue time,
         and its program's event when the scores were in pinned host
         memory."""
-        scores = self._scores(tick)
-        if self._issued is None:
-            done_s = time.perf_counter()
-        else:
-            done_s = tick.issued_s + self._issued[tick.slot].elapsed_time(
-                tick.program.events[tick.slot]) / 1e3
-        self.latencies_s.append(done_s - tick.start_s)
-        traces.append(scores)
-        if on_tick is not None:
-            on_tick(len(traces) - 1, scores)
+        with span("tick.collect"):
+            scores = self._scores(tick)
+            if self._issued is None:
+                done_s = time.perf_counter()
+            else:
+                issued = self._issued[tick.slot]
+                done_s = tick.issued_s + issued.elapsed_time(
+                    tick.program.events[tick.slot]) / 1e3
+            self.latencies_s.append(done_s - tick.start_s)
+            traces.append(scores)
+            if on_tick is not None:
+                on_tick(len(traces) - 1, scores)
 
     def run(self, source: SensorSource, n_ticks: int = 300,
             nap: bool = False,
@@ -548,7 +560,16 @@ class StreamingDetector:
         `source.ready()`; the wait aborts when a queue goes silent for
         connection_timeout_s (default CONNECTION_TIMEOUT_S), never for a
         slow fill.  tick_hook(k) sees each invocation index once, warm-up
-        iterations included."""
+        iterations included.
+
+        Spans (`utils/profiling.span`, recorded only while a profiler
+        runs): `run.hook` around each tick_hook call; `tick` around each
+        iteration that issues a tick, through the collect that follows it
+        (pipelined: tick i-1's, so the last tick's collect lies outside any
+        `tick`); inside it `tick.snapshot` (the four ring snapshots),
+        `tick.mfcc_stage`, `tick.launch` (which holds `tick.stage`) and
+        `tick.collect` (which holds `tick.wait`, the host blocked on the
+        card)."""
         from icra2021_multimodal_ad_tpu_torch.data.acquisition import (
             CONNECTION_TIMEOUT_S,
         )
@@ -566,7 +587,8 @@ class StreamingDetector:
         hook_i = 0
         while i < n_ticks:
             if tick_hook is not None:
-                tick_hook(hook_i)  # simulator advance / rate limiting
+                with span("run.hook"):
+                    tick_hook(hook_i)  # simulator advance / rate limiting
                 hook_i += 1
             if connection_timeout_s is not None:
                 dead = source.stale_topics(connection_timeout_s)
@@ -578,24 +600,28 @@ class StreamingDetector:
                     raise SensorTimeout.for_topics(dead, warmup_silence_s)
                 time.sleep(0.01 if tick_hook is None else 0.001)
                 continue
-            if pending is not None:
-                pending.program.wait(pending.slot)
-            start = time.perf_counter()
-            chunks = source.mic_q.snapshot()
-            if guard_tol is not None and i == 0:
-                self._guard_live(source, mfcc_from_int16_chunks_device(
-                    chunks, self.config, length=self.config.batch_size / 10.0,
-                    device=self.device), nap, guard_tol)
-            tick = self._issue(i % SLOTS if pipelined else 0,
-                               source.force_q.snapshot(),
-                               source.hand_q.snapshot(),
-                               source.depth_q.snapshot(), chunks, nap, start)
-            if pipelined:
+            with span("tick"):
                 if pending is not None:
-                    self._collect(pending, traces, on_tick)
-                pending = tick
-            else:
-                self._collect(tick, traces, on_tick)
+                    pending.program.wait(pending.slot)
+                start = time.perf_counter()
+                with span("tick.snapshot"):
+                    chunks = source.mic_q.snapshot()
+                    rings = (source.force_q.snapshot(),
+                             source.hand_q.snapshot(),
+                             source.depth_q.snapshot())
+                if guard_tol is not None and i == 0:
+                    self._guard_live(source, mfcc_from_int16_chunks_device(
+                        chunks, self.config,
+                        length=self.config.batch_size / 10.0,
+                        device=self.device), nap, guard_tol)
+                tick = self._issue(i % SLOTS if pipelined else 0, *rings,
+                                   chunks, nap, start)
+                if pipelined:
+                    if pending is not None:
+                        self._collect(pending, traces, on_tick)
+                    pending = tick
+                else:
+                    self._collect(tick, traces, on_tick)
             i += 1
         if pending is not None:  # the last pipelined tick
             self._collect(pending, traces, on_tick)

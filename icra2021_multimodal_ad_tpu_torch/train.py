@@ -122,6 +122,7 @@ from icra2021_multimodal_ad_tpu_torch.utils.checkpoint import (
 )
 from icra2021_multimodal_ad_tpu_torch.utils import jax_prng
 from icra2021_multimodal_ad_tpu_torch.utils.device import resolve_device
+from icra2021_multimodal_ad_tpu_torch.utils.profiling import span
 from icra2021_multimodal_ad_tpu_torch.utils.torch_compat import (
     from_jax_pytrees,
     pytrees_to_state_dict,
@@ -534,7 +535,14 @@ def train_all_epochs(model: AutoEncoder, optimizer: torch.optim.Adam,
     checkpoint every `checkpoint_every` epochs.  Restores the best weights
     into `model`.  With a `mesh`, every rank passes the same inputs; a mesh
     that is not `capturable` (gloo on a card) runs the eager loop instead,
-    per-epoch (`train_all_epochs_eager`)."""
+    per-epoch (`train_all_epochs_eager`).
+
+    Spans (`utils/profiling.span`, recorded only while a profiler runs;
+    the eager loop has none): `train.setup` (the best snapshot and the
+    programs' buffers), `train.stage` for each epoch's staging,
+    `train.eager_epoch` for the first launch and `train.launch` for each
+    replayed one, `train.capture`, per-epoch mode's `train.sums` (the host
+    blocked on the card) and `train.end_epoch`, and `train.finish`."""
     run = dict(train_history=list(train_history or []),
                valid_history=list(valid_history or []), verbose=verbose,
                checkpoint_path=checkpoint_path,
@@ -547,31 +555,40 @@ def train_all_epochs(model: AutoEncoder, optimizer: torch.optim.Adam,
         raise ValueError("the fused mode trains a whole run from epoch 0, "
                          "as JAX's train_all_epochs")
     n, n_valid = train_x.shape[0], valid_x.shape[0]
-    if best is None and not fused:
-        best = {"loss": np.inf, "state_dict": _snapshot(model)}
-    progs = EpochPrograms(model, optimizer, train_x, valid_x, seed, batch,
-                          n_epochs - start_epoch, fused, mesh)
-    progs.stage(start_epoch)
+    with span("train.setup"):
+        if best is None and not fused:
+            best = {"loss": np.inf, "state_dict": _snapshot(model)}
+        progs = EpochPrograms(model, optimizer, train_x, valid_x, seed,
+                              batch, n_epochs - start_epoch, fused, mesh)
+    with span("train.stage"):
+        progs.stage(start_epoch)
     for epoch in range(start_epoch, n_epochs):
-        progs.launch(epoch)
+        with span("train.eager_epoch" if epoch == start_epoch
+                  else "train.launch"):
+            progs.launch(epoch)
         if epoch + 1 < n_epochs:
             if epoch == start_epoch:
-                progs.capture()
-            progs.stage(epoch + 1)
+                with span("train.capture"):
+                    progs.capture()
+            with span("train.stage"):
+                progs.stage(epoch + 1)
         if not fused:
-            total, vtotal = progs.sums(epoch)
-            best = _end_epoch(epoch, total / max(n, 1),
-                              vtotal / max(n_valid, 1), best, model,
-                              optimizer, run)
-    if fused:
-        train_means, valid_means = progs.fetch()
-        run["train_history"] += train_means
-        run["valid_history"] += valid_means
-    else:
-        model.load_state_dict(best["state_dict"])
-    # the last replay's gradients live in the programs' pool
-    optimizer.zero_grad(set_to_none=True)
-    train_ms, eval_ms = progs.times_ms()
+            with span("train.sums"):
+                total, vtotal = progs.sums(epoch)
+            with span("train.end_epoch"):
+                best = _end_epoch(epoch, total / max(n, 1),
+                                  vtotal / max(n_valid, 1), best, model,
+                                  optimizer, run)
+    with span("train.finish"):
+        if fused:
+            train_means, valid_means = progs.fetch()
+            run["train_history"] += train_means
+            run["valid_history"] += valid_means
+        else:
+            model.load_state_dict(best["state_dict"])
+        # the last replay's gradients live in the programs' pool
+        optimizer.zero_grad(set_to_none=True)
+        train_ms, eval_ms = progs.times_ms()
     return TrainResult(model=model.eval(), train_history=run["train_history"],
                        valid_history=run["valid_history"], train_ms=train_ms,
                        eval_ms=eval_ms)
@@ -646,40 +663,47 @@ class NoveltyDetecter:
         checkpointing, and never with checkpointing.  With `resume`, an
         existing npz checkpoint at `checkpoint_path` restores the weights,
         Adam's state, the best snapshot and the histories, and training
-        continues at its epoch."""
-        cfg = self.config
-        checkpointing = bool(checkpoint_path) and (checkpoint_every > 0
-                                                   or resume)
-        if fused is None:
-            fused = cfg.verbose < 1
-        fused = fused and not checkpointing
-        train_dtype = getattr(cfg, "train_dtype", "float32")
-        if train_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"train_dtype must be 'float32' or 'bfloat16', "
-                             f"got {train_dtype!r}")
-        dtype = getattr(torch, train_dtype)
-        train_x = self._data(train_x, dtype)
-        valid_x = self._data(valid_x, dtype)
-        batch = min(cfg.batch_size, train_x.shape[0])
-        if self.mesh is not None:
-            replicate(self.mesh, model)  # rank 0's initial weights
-        optimizer = make_optimizer(model, cfg.lr)
-        loaded = {}
-        if resume and checkpoint_path:
-            ckpt = (checkpoint_path if checkpoint_path.endswith(".npz")
-                    else checkpoint_path + ".npz")
-            if os.path.exists(ckpt):
-                loaded = load_train_checkpoint(ckpt, model, optimizer)
-                if cfg.verbose >= 1:
-                    print(f"resumed from {ckpt} at epoch {loaded['epoch']}")
-        return train_all_epochs(
-            model, optimizer, train_x, valid_x, cfg.seed, batch, cfg.n_epochs,
-            start_epoch=loaded.get("epoch", 0), best=loaded.get("best"),
-            train_history=loaded.get("train_history"),
-            valid_history=loaded.get("valid_history"),
-            checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every, verbose=cfg.verbose,
-            mesh=self.mesh, fused=fused)
+        continues at its epoch.  The whole job is the span `train.job`; its
+        windows to the device, optimizer and restore are `train.setup`."""
+        with span("train.job"):
+            cfg = self.config
+            checkpointing = bool(checkpoint_path) and (checkpoint_every > 0
+                                                       or resume)
+            if fused is None:
+                fused = cfg.verbose < 1
+            fused = fused and not checkpointing
+            train_dtype = getattr(cfg, "train_dtype", "float32")
+            if train_dtype not in ("float32", "bfloat16"):
+                raise ValueError(f"train_dtype must be 'float32' or "
+                                 f"'bfloat16', got {train_dtype!r}")
+            dtype = getattr(torch, train_dtype)
+            with span("train.setup"):
+                train_x = self._data(train_x, dtype)
+                valid_x = self._data(valid_x, dtype)
+                batch = min(cfg.batch_size, train_x.shape[0])
+                if self.mesh is not None:
+                    replicate(self.mesh, model)  # rank 0's initial weights
+                optimizer = make_optimizer(model, cfg.lr)
+                loaded = {}
+                if resume and checkpoint_path:
+                    ckpt = (checkpoint_path
+                            if checkpoint_path.endswith(".npz")
+                            else checkpoint_path + ".npz")
+                    if os.path.exists(ckpt):
+                        loaded = load_train_checkpoint(ckpt, model,
+                                                       optimizer)
+                        if cfg.verbose >= 1:
+                            print(f"resumed from {ckpt} at epoch "
+                                  f"{loaded['epoch']}")
+            return train_all_epochs(
+                model, optimizer, train_x, valid_x, cfg.seed, batch,
+                cfg.n_epochs, start_epoch=loaded.get("epoch", 0),
+                best=loaded.get("best"),
+                train_history=loaded.get("train_history"),
+                valid_history=loaded.get("valid_history"),
+                checkpoint_path=checkpoint_path,
+                checkpoint_every=checkpoint_every, verbose=cfg.verbose,
+                mesh=self.mesh, fused=fused)
 
     def test(self, model: AutoEncoder, train_x, valid_x, test_x, test_y,
              save_stats_path: Optional[str] = None):

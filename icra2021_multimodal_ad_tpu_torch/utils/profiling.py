@@ -3,10 +3,15 @@
 novelty_detection.py:216-221, utils/metric.py:208-224, FullTest.py:126-128,
 realtime_tester.py:292-309).
 
-  * `Timer.span` and `timed`: host-clock spans that end with
-    `torch.cuda.synchronize` on the device they time, so the span covers the
-    device's work and not only its launch (a bare host clock around CUDA
-    calls measures the launch; the reference's numbers had this flaw).
+  * `span`: a named host span of the program (the streaming tick's and the
+    trainer's stages), recorded by whatever `torch.profiler` is running, on
+    the timeline of the card's kernels and copies; with no profiler
+    recording it is one shared no-op context.  The program keeps no span
+    log: the profiler's holder does.
+  * `timed`: a host-clock span that ends with `torch.cuda.synchronize` on
+    the device it times, so it covers the device's work and not only its
+    launch (a bare host clock around CUDA calls measures the launch; the
+    reference's numbers had this flaw).
   * `timed_loop` and `timed_loop_stats`: a body run n times on the device
     with a carried tensor, timed with CUDA events; the fixed cost is taken
     out by differencing a 1-iteration run.
@@ -24,8 +29,7 @@ import contextlib
 import os
 import statistics
 import time
-from collections import defaultdict
-from typing import Callable, Dict
+from typing import Callable
 
 import torch
 
@@ -36,32 +40,20 @@ from icra2021_multimodal_ad_tpu_torch.utils.device import (
 )
 
 
-class Timer:
-    """Named host-clock accumulator that syncs with `device` at each span's
-    end."""
+#: the context every span returns while no profiler is recording
+_OFF = contextlib.nullcontext()
 
-    def __init__(self, device="cuda"):
-        self.device = resolve_device(device)
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def span(self, name: str, sync: bool = True):
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync:
-                synchronize(self.device)
-            self.totals[name] += time.perf_counter() - start
-            self.counts[name] += 1
-
-    def report(self) -> Dict[str, dict]:
-        return {
-            k: {"total_s": v, "count": self.counts[k],
-                "mean_ms": 1e3 * v / max(self.counts[k], 1)}
-            for k, v in self.totals.items()
-        }
+def span(name: str):
+    """A context that records `name` as a span while a profiler is recording
+    (`torch.profiler.record_function`), and otherwise the shared no-op
+    context: no allocation and no clock read, so a span on the tick's path
+    costs a check when nothing traces it.  Never place one inside a
+    function that a `graphs.Program` captures: host code there does not
+    run on a replay."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def timed(fn, *args, warmup: int = 1, iters: int = 10, device="cuda", **kw):

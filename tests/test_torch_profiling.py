@@ -1,9 +1,9 @@
 """The port's timing and tracing (utils/profiling.py) on the CPU, the cases
-of tests/test_config_profiling.py: spans accumulate, the warm-up keeps a
-slow first call out, the paired loop estimator returns positive samples
-within their spread and raises rather than clamp, and the trace is a
-Chrome trace.  A CUDA device on a host without CUDA raises: no timing
-falls back to the CPU."""
+of tests/test_config_profiling.py: the warm-up keeps a slow first call
+out, the paired loop estimator returns positive samples within their
+spread and raises rather than clamp, and the trace is a Chrome trace.
+A CUDA device on a host without CUDA raises: no timing falls back to the
+CPU."""
 
 import json
 import os
@@ -14,27 +14,12 @@ import torch
 
 from icra2021_multimodal_ad_tpu_torch.utils import profiling
 from icra2021_multimodal_ad_tpu_torch.utils.profiling import (
-    Timer,
     retry,
     timed,
     timed_loop,
     timed_loop_stats,
     trace,
 )
-
-
-def test_timer_spans_accumulate():
-    t = Timer(device="cpu")
-    for _ in range(2):
-        with t.span("a"):
-            torch.ones(8, 8).sum()
-    with t.span("b", sync=False):
-        pass
-    rep = t.report()
-    assert rep["a"]["count"] == 2 and rep["a"]["total_s"] > 0
-    assert rep["b"]["count"] == 1
-    assert rep["a"]["mean_ms"] == pytest.approx(
-        1e3 * rep["a"]["total_s"] / 2)
 
 
 def test_timed_excludes_the_first_call():
@@ -128,12 +113,11 @@ def test_trace_pads_only_the_card(tmp_path, monkeypatch):
     assert not any(slept)
 
 
-@pytest.mark.parametrize("fn", ["Timer", "timed", "timed_loop", "trace"])
+@pytest.mark.parametrize("fn", ["timed", "timed_loop", "trace"])
 def test_the_card_is_the_default_and_never_falls_back(fn):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")
     calls = {
-        "Timer": lambda: Timer(),
         "timed": lambda: timed(lambda: None),
         "timed_loop": lambda: timed_loop(_make_body, n_iters=2),
         "trace": lambda: trace().__enter__(),
