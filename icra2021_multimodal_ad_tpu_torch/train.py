@@ -48,6 +48,18 @@ capture follows it, so the run takes exactly its own Adam steps.  On CUDA a
 failed capture or replay raises; the eager loop, `train_all_epochs_eager`,
 is the reference the programs are held to bit for bit (chip_smoke.py).
 
+The captured programs outlive their job, as JAX's jit cache keeps a
+compiled epoch program for the next call of the same static arguments and
+shapes: the process keeps the last job's programs on each device
+(`PROGRAMS`), and a job of the same `programs_key` rebinds them, its
+initial weights, a zeroed Adam state and its windows copied into the
+tensors the graphs captured, and replays every epoch, its first included;
+at its end the model and optimizer get copies of what those tensors hold,
+so nothing a job returns shares storage with the kept programs.  The
+arithmetic is the captured graphs', which equal the eager epochs bit for
+bit, so such a job trains as a fresh one would.  A job of other shapes
+releases the entry, synchronizing, before it captures its own.
+
 A mesh runs the same programs, its collectives inside them, as JAX runs
 its meshed `train_epoch` and `train_all_epochs`: wherever the mesh is
 `capturable` (parallel/mesh.py), an NCCL mesh on the cards and any mesh on
@@ -85,10 +97,11 @@ import csv
 import math
 import os
 import time
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.optim import optimizer as optim_hooks
 
 from icra2021_multimodal_ad_tpu_torch.config import Config
 from icra2021_multimodal_ad_tpu_torch.models.autoencoder import (
@@ -385,7 +398,12 @@ class EpochPrograms:
     Per epoch: `stage` (host draws into the epoch's slot, after that
     slot's last launch), `launch` (both passes, between CUDA events);
     after the first epoch's launch, eager as the warm-up, `capture`; then
-    `sums` (per-epoch mode) or, after the last epoch, `fetch` (fused)."""
+    `sums` (per-epoch mode) or, after the last epoch, `fetch` (fused).
+
+    Captured programs serve a later job of the same shapes (`ProgramCache`):
+    `end_job` gives the job's model and optimizer copies of their values and
+    lets them go, and `rebind` gives the fixed tensors the next job's
+    initial values, so every epoch of that job replays."""
 
     def __init__(self, model: AutoEncoder, optimizer: torch.optim.Adam,
                  train_x: torch.Tensor, valid_x: torch.Tensor, seed: int,
@@ -408,6 +426,12 @@ class EpochPrograms:
         self.valid = graphs.Program(self._valid_pass, [], self.device,
                                     pool=pool, stateful=True)
         self._marks: list = []
+        self.captured = False
+        #: the model's parameters and buffers, the tensors the graphs update
+        self._kept = {k: v.detach()
+                      for k, v in model.state_dict(keep_vars=True).items()}
+        #: Adam's state per parameter, in order, once a job has ended
+        self._adam: List[dict] = []
         if fused:
             self.epochs_run = torch.zeros(1, dtype=torch.int64,
                                           device=self.device)
@@ -465,6 +489,59 @@ class EpochPrograms:
     def capture(self) -> None:
         self.train.capture()
         self.valid.capture()
+        self.captured = True
+
+    @torch.no_grad()
+    def end_job(self) -> None:
+        """After a job: the fixed tensors and Adam state stay with the
+        programs, and the job's model and optimizer go on with copies of
+        their values, so that no later job's rebind reaches them."""
+        self._adam = [self.optimizer.state[p]
+                      for p in self.model.parameters()]
+        for k, t in self.model.state_dict(keep_vars=True).items():
+            t.data = self._kept[k].clone()
+        for p, st in zip(self.model.parameters(), self._adam):
+            self.optimizer.state[p] = {k: v.clone() for k, v in st.items()}
+        self.model = self.optimizer = None
+
+    @torch.no_grad()
+    def rebind(self, model: AutoEncoder, optimizer: torch.optim.Adam,
+               train_x: torch.Tensor, valid_x: torch.Tensor,
+               seed: int) -> None:
+        """Ready the captured programs for a new job from `model`'s values,
+        a fresh `optimizer` over its parameters, these windows and `seed`,
+        as a new build would start it: the initial parameters and BN
+        buffers and the windows copied into the fixed tensors, Adam's state
+        zeroed, the fused mode's best loss, snapshot and epoch count
+        reset.  For the job, `model`'s parameters and buffers hold the
+        fixed tensors themselves and `optimizer` their Adam state
+        (`end_job` parts them again)."""
+        for k, t in model.state_dict(keep_vars=True).items():
+            self._kept[k].copy_(t)
+            t.data = self._kept[k]
+        torch._foreach_zero_([v for st in self._adam for v in st.values()])
+        for p, st in zip(model.parameters(), self._adam):
+            optimizer.state[p] = st
+        self.train_x.copy_(train_x)
+        self.valid_x.copy_(valid_x)
+        if self.fused:
+            self.best_loss.fill_(np.inf)
+            self.epochs_run.zero_()  # the history is written from 0
+            for live, snap in self._select:
+                snap.copy_(live)
+        self.model, self.optimizer, self.seed = model, optimizer, seed
+        self._marks = []
+
+    def release(self) -> None:
+        """Destroy both graphs and drop every buffer, once the card has
+        finished with them: the pool, Adam's state and the windows are
+        freed now, not by the collector, which might run during a later
+        capture."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.train.release()
+        self.valid.release()
+        self.__dict__.clear()
 
     def sums(self, epoch: int) -> Tuple[float, float]:
         """The epoch's (train, validation) loss sums, once its validation
@@ -492,6 +569,92 @@ class EpochPrograms:
             ms = [(a.elapsed_time(b), b.elapsed_time(c))
                   for a, b, c in self._marks]
         return [t for t, _ in ms], [v for _, v in ms]
+
+
+class ProgramCache:
+    """The captured epoch programs of the last cached job on each device,
+    kept for the next job of the same `programs_key`, as JAX's jit cache
+    keeps an epoch program per static arguments and shapes (the JAX
+    package caches `optax.adam` by learning rate so that repeated trainings
+    in one process hit it).  `take` is a hit, which the job rebinds
+    (`EpochPrograms.rebind`) and replays from its first epoch, or a miss,
+    which releases the device's entry before the job builds, runs its
+    first epoch eagerly and captures its own; `keep` makes a job's
+    programs the entry.  `hits` and `misses` count the jobs."""
+
+    def __init__(self):
+        self._entries: Dict[torch.device, Tuple[tuple, EpochPrograms]] = {}
+        self.hits = self.misses = 0
+
+    def take(self, key: tuple, replay: bool = True
+             ) -> Optional[EpochPrograms]:
+        """The entry's programs, out of the cache, where they were kept
+        under `key` and the job may `replay` its first epoch; else None,
+        the device's entry released."""
+        device = key[0]
+        entry = self._entries.pop(device, None)
+        if replay and entry is not None and entry[0] == key:
+            self.hits += 1
+            return entry[1]
+        if entry is not None:
+            entry[1].release()
+        self.misses += 1
+        return None
+
+    def keep(self, key: tuple, progs: EpochPrograms) -> None:
+        progs.end_job()
+        self._entries[key[0]] = (key, progs)
+
+    def clear(self) -> None:
+        """Release every entry and zero the counts."""
+        while self._entries:
+            self._entries.popitem()[1][1].release()
+        self.hits = self.misses = 0
+
+
+#: the process's kept epoch programs (`train_all_epochs`)
+PROGRAMS = ProgramCache()
+
+
+def programs_key(model: AutoEncoder, optimizer: torch.optim.Adam,
+                 train_x: torch.Tensor, valid_x: torch.Tensor, batch: int,
+                 n_epochs: int, fused: bool) -> Optional[tuple]:
+    """What a job's captured programs are specialized to: the device, the
+    model's architecture (each module's type and activation, each
+    parameter's and buffer's name, shape and dtype, the VIB head), the
+    windows' dtype and shapes, the batch, the epochs, the mode, the
+    optimizer's kind and hyper-parameters, and the float32 math mode that
+    picks the captured cuBLAS and cuDNN kernels (the TF32 switches and
+    `torch.get_float32_matmul_precision`, as JAX's jit keys on its matmul
+    precision).  None where the optimizer has state already or is not over
+    exactly the model's parameters: no kept programs can stand in for
+    it."""
+    groups = optimizer.param_groups
+    if (optimizer.state or len(groups) != 1 or [id(p) for p in groups[0][
+            "params"]] != [id(p) for p in model.parameters()]):
+        return None
+    return (train_x.device,
+            tuple((name, type(m), getattr(m, "act", None))
+                  for name, m in model.named_modules()),
+            tuple((k, tuple(v.shape), v.dtype)
+                  for k, v in model.state_dict().items()),
+            (model.distribution, model.k, model.stochastic_inference),
+            train_x.dtype, tuple(train_x.shape), valid_x.dtype,
+            tuple(valid_x.shape), batch, n_epochs, fused, type(optimizer),
+            tuple(sorted((k, repr(v)) for k, v in groups[0].items()
+                         if k != "params")),
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision()))
+
+
+def _watched(optimizer: torch.optim.Adam) -> bool:
+    """Whether step hooks, the optimizer's own or global, watch its steps:
+    a replay runs no Python and would call none of them."""
+    return bool(optimizer._optimizer_step_pre_hooks
+                or optimizer._optimizer_step_post_hooks
+                or optim_hooks._global_optimizer_pre_hooks
+                or optim_hooks._global_optimizer_post_hooks)
 
 
 def _end_epoch(epoch: int, train_loss: float, valid_loss: float, best: dict,
@@ -537,10 +700,21 @@ def train_all_epochs(model: AutoEncoder, optimizer: torch.optim.Adam,
     that is not `capturable` (gloo on a card) runs the eager loop instead,
     per-epoch (`train_all_epochs_eager`).
 
+    A job from epoch 0 of two or more epochs on one device, with no
+    checkpoint, a fresh optimizer over the model's parameters and no mesh,
+    goes through `PROGRAMS`: where the kept programs match its
+    `programs_key` it rebinds them and replays every epoch, the first
+    included; else it builds, runs its first epoch eagerly, captures, and
+    its programs, on windows of their own, become the entry.  A job whose
+    optimizer's steps are watched by hooks never replays its first epoch.
+    Resumed, checkpointing and meshed jobs neither use nor change the
+    cache.
+
     Spans (`utils/profiling.span`, recorded only while a profiler runs;
-    the eager loop has none): `train.setup` (the best snapshot and the
-    programs' buffers), `train.stage` for each epoch's staging,
-    `train.eager_epoch` for the first launch and `train.launch` for each
+    the eager loop has none): `train.setup` (the best snapshot, the cache's
+    lookup and the programs' buffers), `train.rebind` on a hit,
+    `train.stage` for each epoch's staging, `train.eager_epoch` for the
+    first launch of programs not yet captured and `train.launch` for each
     replayed one, `train.capture`, per-epoch mode's `train.sums` (the host
     blocked on the card) and `train.end_epoch`, and `train.finish`."""
     run = dict(train_history=list(train_history or []),
@@ -555,19 +729,33 @@ def train_all_epochs(model: AutoEncoder, optimizer: torch.optim.Adam,
         raise ValueError("the fused mode trains a whole run from epoch 0, "
                          "as JAX's train_all_epochs")
     n, n_valid = train_x.shape[0], valid_x.shape[0]
+    key = None
+    if (mesh is None and not start_epoch and best is None
+            and not (train_history or valid_history) and n_epochs > 1
+            and not (checkpoint_path and checkpoint_every > 0)):
+        key = programs_key(model, optimizer, train_x, valid_x, batch,
+                           n_epochs, fused)
     with span("train.setup"):
         if best is None and not fused:
             best = {"loss": np.inf, "state_dict": _snapshot(model)}
-        progs = EpochPrograms(model, optimizer, train_x, valid_x, seed,
-                              batch, n_epochs - start_epoch, fused, mesh)
+        progs = None if key is None else PROGRAMS.take(
+            key, replay=not _watched(optimizer))
+        if progs is None:
+            if key is not None:  # the entry's windows are its own
+                train_x, valid_x = train_x.clone(), valid_x.clone()
+            progs = EpochPrograms(model, optimizer, train_x, valid_x, seed,
+                                  batch, n_epochs - start_epoch, fused, mesh)
+    if progs.captured:
+        with span("train.rebind"):
+            progs.rebind(model, optimizer, train_x, valid_x, seed)
     with span("train.stage"):
         progs.stage(start_epoch)
     for epoch in range(start_epoch, n_epochs):
-        with span("train.eager_epoch" if epoch == start_epoch
-                  else "train.launch"):
+        eager = not progs.captured
+        with span("train.eager_epoch" if eager else "train.launch"):
             progs.launch(epoch)
         if epoch + 1 < n_epochs:
-            if epoch == start_epoch:
+            if eager:
                 with span("train.capture"):
                     progs.capture()
             with span("train.stage"):
@@ -589,6 +777,8 @@ def train_all_epochs(model: AutoEncoder, optimizer: torch.optim.Adam,
         # the last replay's gradients live in the programs' pool
         optimizer.zero_grad(set_to_none=True)
         train_ms, eval_ms = progs.times_ms()
+        if key is not None:
+            PROGRAMS.keep(key, progs)
     return TrainResult(model=model.eval(), train_history=run["train_history"],
                        valid_history=run["valid_history"], train_ms=train_ms,
                        eval_ms=eval_ms)
@@ -663,8 +853,11 @@ class NoveltyDetecter:
         checkpointing, and never with checkpointing.  With `resume`, an
         existing npz checkpoint at `checkpoint_path` restores the weights,
         Adam's state, the best snapshot and the histories, and training
-        continues at its epoch.  The whole job is the span `train.job`; its
-        windows to the device, optimizer and restore are `train.setup`."""
+        continues at its epoch.  A job of the same shapes, dtype, lr and
+        mode as the process's last on the device replays that job's
+        captured programs from its first epoch (`train_all_epochs`).  The
+        whole job is the span `train.job`; its windows to the device,
+        optimizer and restore are `train.setup`."""
         with span("train.job"):
             cfg = self.config
             checkpointing = bool(checkpoint_path) and (checkpoint_every > 0

@@ -231,3 +231,14 @@ class Program:
         """The slot's output: on the host once `wait(slot)` returned (a
         to_host program), or the graph's device output."""
         return self._outputs[slot]
+
+    def release(self) -> None:
+        """Destroy the graphs and drop `fn` and the buffers, once no launch
+        is pending (the caller synchronizes): a program whose `fn` is a
+        method of its owner is a cycle that only the collector would free
+        otherwise, at a time of its own choosing."""
+        for graph in self._graphs or ():
+            graph.reset()
+        self._graphs = None
+        self.fn = None
+        self._staging, self._outputs, self._inputs = [], [], []

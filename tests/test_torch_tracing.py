@@ -26,6 +26,7 @@ from icra2021_multimodal_ad_tpu_torch.ops.scoring import (
     concat_diffs,
 )
 from icra2021_multimodal_ad_tpu_torch.train import (
+    PROGRAMS,
     NoveltyDetecter,
     make_optimizer,
     train_all_epochs,
@@ -62,6 +63,14 @@ def _inside(child, parent) -> bool:
 
 def _named(spans, name):
     return [s for s in spans if s[0] == name]
+
+
+@pytest.fixture(autouse=True)
+def _fresh_program_cache():
+    """Each test starts with no kept epoch programs (`train.PROGRAMS`): a
+    worker runs many test files in one process, and a kept entry would
+    turn a job that these tests count as a miss into a hit."""
+    PROGRAMS.clear()
 
 
 def _traced(fn):
@@ -229,3 +238,28 @@ def test_a_job_is_one_span_holding_its_two_setups():
     assert len(_named(spans, "train.setup")) == 2
     assert all(_inside(s, job) for s in spans)
     assert not any(s[0].startswith(("tick", "run")) for s in spans)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("hit", [True, False], ids=["hit", "miss"])
+def test_a_hit_records_a_rebind_and_a_miss_a_capture(hit, fused):
+    """A job that finds the programs of its shapes kept records one
+    `train.rebind` and replays every epoch: no eager epoch, no capture.
+    A job on an empty cache records the reverse.  Their counts in a trace
+    are the cache's hits and misses."""
+    if hit:
+        _job(fused)
+    hits, misses = PROGRAMS.hits, PROGRAMS.misses
+    res, spans = _traced(lambda: _job(fused))
+    assert len(res.train_history) == 3
+    count = {name: len(_named(spans, name)) for name in (
+        "train.rebind", "train.eager_epoch", "train.capture",
+        "train.launch")}
+    assert count == {"train.rebind": int(hit),
+                     "train.eager_epoch": int(not hit),
+                     "train.capture": int(not hit),
+                     "train.launch": 3 - (not hit)}
+    assert (PROGRAMS.hits - hits, PROGRAMS.misses - misses) == (
+        int(hit), int(not hit))
+    setup, = _named(spans, "train.setup")
+    assert all(setup[2] <= s[1] for s in _named(spans, "train.rebind"))
