@@ -7,7 +7,8 @@ the faults', seed by seed, on the card at the cell's own sizes.
 `--what`: `program` (the program's own numbers after a short window at the
 cell's load, as a run compares them), `tf32` (the plain reference in fp32
 with TF32 products, put in the program's place), `float32` (the same with
-TF32 off), `fault:<stale|half_batch|altered>` (training: the reference in
+TF32 off), `tf32_ae` (tick cells: the frontend in fp32, the autoencoder
+and its score in TF32), `fault:<stale|half_batch|altered>` (training: the reference in
 fp32 with the fault planted), `planted:<fault>` (training: the program
 with a fault of `benchmark/controls/faults.py` planted in its replayed
 epochs, a set-up and window of its own).  Each seed is one set-up; every
@@ -125,7 +126,8 @@ def main(argv=None) -> int:
                           else entry.control(limits, what))
                 emit(args.workload, seed, what, checks)
             if args.diagnose:
-                controls = [w for w in whats if w in ("tf32", "float32")]
+                controls = [w for w in whats
+                            if w in ("tf32", "float32", "tf32_ae")]
                 print(json.dumps({"cell": args.workload, "seed": seed,
                                   "diagnose": diagnose(entry, controls)}),
                       flush=True)

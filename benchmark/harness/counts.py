@@ -110,6 +110,12 @@ def score_model_flops(config: dict, b: int, j: int) -> float:
     return 2.0 * b * (2 * enc + dec) + 2.0 * b * diff_width(config) * j
 
 
+def base_model_flops(config: dict, b: int) -> float:
+    """Model FLOPs of BASE-scoring b windows: two module passes (encoder,
+    decoder) and no NAP product."""
+    return 2.0 * b * weight_count(config)
+
+
 def train_model_flops(config: dict, n_train: int, n_valid: int,
                       epochs: int) -> float:
     """Model FLOPs of a training job: 6 per parameter and training window

@@ -1,9 +1,11 @@
 """The robot's tick: `StreamingDetector.run`, one robot in a closed loop.
 
-Set-up draws the autoencoder and the fusion projection, fits the NAP
-whitening with the program's own path (its realtime frontend fuses
-`nap_fit_rows` windows from simulated steps, `ops/rapp.get_diffs` and
-`ops/scoring.nap_fit` fit them), builds the detector, fills its rings and
+The traffic's `nap` picks the score: NAP, or BASE (the mean squared
+reconstruction error, the robot's default).  Set-up draws the autoencoder
+and the fusion projection; for NAP it fits the whitening with the
+program's own path (its realtime frontend fuses `nap_fit_rows` windows from
+simulated steps, `ops/rapp.get_diffs` and `ops/scoring.nap_fit` fit them),
+which BASE needs none of.  Then it builds the detector, fills its rings and
 runs `warmup_ticks` ticks, which capture its programs.  In the window every
 tick's `tick_hook` pushes the next pre-drawn robot step into the rings (the
 steps cycle through a pool of `pool_steps`), and each tick is timed from
@@ -34,7 +36,7 @@ from benchmark.harness.port import (
 from benchmark.reference import ae as ref_ae
 from benchmark.reference import frontend, nap
 from benchmark.reference.compare import Check, median_rel_gap, widest_rel_gap
-from benchmark.reference.precision import precision
+from benchmark.reference.precision import part, precision
 
 #: int16 samples of one 0.1 s MFCC window
 MIC_WINDOW = 4410
@@ -57,16 +59,6 @@ class Entry:
         from icra2021_multimodal_ad_tpu_torch.data.streaming import (
             SensorSource,
             StreamingDetector,
-            hsr_window_batch,
-        )
-        from icra2021_multimodal_ad_tpu_torch.ops.mfcc import (
-            mfcc_from_int16_chunks_device,
-        )
-        from icra2021_multimodal_ad_tpu_torch.ops.rapp import get_diffs
-        from icra2021_multimodal_ad_tpu_torch.ops.scoring import (
-            concat_diffs,
-            nap_effective_stats,
-            nap_fit,
         )
 
         self.config, self.traffic, self.seed = config, traffic, seed
@@ -82,15 +74,40 @@ class Entry:
             model = port_model(config, self.weights, device)
             fusion_params = port_fusion(self.fusion)
             self.held = mic_chunks_held(b, inputs.SensorSteps.CHUNK_SAMPLES)
-            n_fit = int(config["nap_fit_rows"])
-            fit_steps = inputs.SensorSteps(-(-n_fit // b) * b, seed, "fit",
-                                           device=device)
             self.steps = inputs.SensorSteps(int(traffic["pool_steps"]), seed,
                                             "ticks", inputs.DROPS, device)
+        stats = self._fit_nap(cfg, model, fusion_params) if self.nap else None
+        with self.setup.span("warm_up"):
+            self.detector = StreamingDetector(cfg, model, fusion_params,
+                                              nap_stats=stats,
+                                              device=self.device)
+            self.source = SensorSource(b)
+            self.cursor = 0
+            for _ in range(b):
+                self._push()
+            self._ticks(int(traffic["warmup_ticks"]))
+        self.window_ticks, self.refs = [], {}
 
-        # the whitening, fitted on ticks of normal steps, each from rings
-        # filled afresh
+    def _fit_nap(self, cfg, model, fusion_params):
+        """NAP's whitening, fitted by the program's own path on ticks of
+        normal steps, each from rings filled afresh."""
+        from icra2021_multimodal_ad_tpu_torch.data.streaming import (
+            hsr_window_batch,
+        )
+        from icra2021_multimodal_ad_tpu_torch.ops.mfcc import (
+            mfcc_from_int16_chunks_device,
+        )
+        from icra2021_multimodal_ad_tpu_torch.ops.rapp import get_diffs
+        from icra2021_multimodal_ad_tpu_torch.ops.scoring import (
+            concat_diffs,
+            nap_effective_stats,
+            nap_fit,
+        )
+
+        b, n_fit = self.b, int(self.config["nap_fit_rows"])
         with self.setup.span("fit_windows"):
+            fit_steps = inputs.SensorSteps(-(-n_fit // b) * b, self.seed,
+                                           "fit", device=self.device)
             self.fit_ticks = [self._snapshot(fit_steps, (j + 1) * b)
                               for j in range(fit_steps.n // b)]
             x_fit = torch.cat([hsr_window_batch(
@@ -101,23 +118,11 @@ class Entry:
                 for t in self.fit_ticks])[:n_fit]
         with self.setup.span("nap_fit"):
             stats = nap_fit(concat_diffs(get_diffs(x_fit, model)),
-                            method=config["nap_fit_method"])
+                            method=self.config["nap_fit_method"])
         self.k, self.j = stats.rotater.v.shape
         self.fit_var = stats.standardizer.var
-        self.floor = float(config.get("nap_var_floor_rel", 0.0))
-        if self.floor:
-            stats = nap_effective_stats(stats, self.floor)
-        del x_fit
-        with self.setup.span("warm_up"):
-            self.detector = StreamingDetector(cfg, model, fusion_params,
-                                              nap_stats=stats if self.nap
-                                              else None, device=self.device)
-            self.source = SensorSource(b)
-            self.cursor = 0
-            for _ in range(b):
-                self._push()
-            self._ticks(int(traffic["warmup_ticks"]))
-        self.window_ticks, self.refs = [], {}
+        self.floor = float(self.config.get("nap_var_floor_rel", 0.0))
+        return nap_effective_stats(stats, self.floor) if self.floor else stats
 
     def _snapshot(self, steps, cursor: int) -> dict:
         """The rings after `cursor` steps: the last b steps' force, frames,
@@ -187,11 +192,18 @@ class Entry:
         return {"ticks": n}
 
     def readings(self) -> dict:
-        flops = counts.score_model_flops(self.config, self.b, self.j)
+        """The window's readings; the score (`nap`) decides the model FLOPs
+        and, for NAP, the whitening's K and J."""
+        if self.nap:
+            flops = counts.score_model_flops(self.config, self.b, self.j)
+            mode = {"nap": True, "k": self.k, "j": self.j}
+        else:
+            flops = counts.base_model_flops(self.config, self.b)
+            mode = {"nap": False}
         return {"tick_mean_ms": float(self.lat_ms.mean()),
                 "ticks": len(self.lat_ms), "window_s": self.elapsed,
                 "model_flops": flops * len(self.lat_ms),
-                "batch": self.b, "k": self.k, "j": self.j,
+                "batch": self.b, **mode,
                 "launches_per_tick": self.launches,
                 "setup_spans_s": self.setup.seconds}
 
@@ -219,22 +231,25 @@ class Entry:
 
     @torch.no_grad()
     def reference(self, name: str = "float64") -> dict:
-        """The reference in precision `name` on the sampled ticks: its
-        whitening fitted from the fit ticks ("fit"), the ticks' windows'
-        diffs, and their scores (NAP through its own fit, or BASE)."""
+        """The reference in precision `name` (a split control's for each
+        part) on the sampled ticks: its whitening fitted from the fit ticks
+        ("fit"), the ticks' windows' diffs, and their scores (NAP through
+        its own fit, or BASE)."""
         if name in self.refs:
             return self.refs[name]
         ticks, _ = self._sample()
         dev, b = self.device, self.b
-        with precision(name) as dtype:
-            model = ref_ae.Ae(self.weights, dtype, dev)
+        n_fit = int(self.config["nap_fit_rows"])
+        with precision(part(name, "frontend")) as dtype:
             x = frontend.tick_windows(self.fusion, ticks, b, dtype, dev)
+            if self.nap:
+                x_fit = frontend.tick_windows(self.fusion, self.fit_ticks, b,
+                                              dtype, dev)[:n_fit]
+        with precision(part(name, "ae")) as dtype:
+            model = ref_ae.Ae(self.weights, dtype, dev)
             if not self.nap:
                 out = {"scores": ((model.forward(x) - x) ** 2).mean(dim=1)}
             else:
-                n_fit = int(self.config["nap_fit_rows"])
-                x_fit = frontend.tick_windows(self.fusion, self.fit_ticks, b,
-                                              dtype, dev)[:n_fit]
                 fit = nap.fit(ref_ae.concat_diffs(model, x_fit), self.floor)
                 del x_fit
                 diffs = ref_ae.concat_diffs(model, x)

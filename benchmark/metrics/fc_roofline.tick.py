@@ -1,6 +1,7 @@
-"""The FC kernel's roofline share over the traced ticks: each tick's three
-module passes at the tick's batch (encoder on x, decoder, encoder on
-x_hat), bound from shapes, over the device time of the `fc_` kernels."""
+"""The FC kernel's roofline share over the traced ticks: each tick's module
+passes at the tick's batch, three with NAP (encoder on x, decoder, encoder
+on x_hat) and two with BASE (encoder, decoder), bound from shapes, over the
+device time of the `fc_` kernels."""
 
 from benchmark.harness import counts
 from benchmark.metrics._kernels import FC, share
@@ -10,5 +11,6 @@ def read(ctx):
     n = ctx.units.get("ticks")
     if not n:
         return None
-    least = n * counts.rapp_fc_cost(ctx.config, ctx.window["batch"])[2]
-    return share(ctx.trace, FC, least)
+    w = ctx.window
+    cost = counts.rapp_fc_cost if w["nap"] else counts.forward_fc_cost
+    return share(ctx.trace, FC, n * cost(ctx.config, w["batch"])[2])

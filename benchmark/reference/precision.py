@@ -1,6 +1,9 @@
 """The precisions the reference runs in: float64 as the reference, and the
 controls' step below the configurations' fp32 with TF32 off, which is fp32
-storage with TF32 matrix products and convolutions on the card."""
+storage with TF32 matrix products and convolutions on the card.  A split
+control lowers one part of the reference only: `tf32_ae` runs the tick's
+frontend (MFCC, fusion) in fp32 and the autoencoder and its score in TF32,
+the step a kernel of the autoencoder alone would take."""
 
 from __future__ import annotations
 
@@ -12,6 +15,15 @@ import torch
 PRECISIONS = {"float64": (torch.float64, False),
               "float32": (torch.float32, False),
               "tf32": (torch.float32, True)}
+
+#: split controls: name -> {part: the precision that part runs in}
+SPLITS = {"tf32_ae": {"frontend": "float32", "ae": "tf32"}}
+
+
+def part(name: str, which: str) -> str:
+    """The precision that part `which` (`frontend`, `ae`) of the reference
+    runs in under `name`: a split control's for that part, else `name`."""
+    return SPLITS[name][which] if name in SPLITS else name
 
 
 @contextlib.contextmanager

@@ -2,7 +2,10 @@
 
 import pytest
 
-from benchmark.harness import counts
+from benchmark.harness import cli, counts
+from benchmark.harness import manifest as mf
+from benchmark.harness.trace import Trace
+from benchmark.tests.test_portbench_faults import SEED, SIZES
 
 ALL = {"input_size": 1728, "n_layers": 5, "btl_size": 100}
 HAND = {"input_size": 1024, "n_layers": 5, "btl_size": 100}
@@ -53,3 +56,60 @@ def test_rapp_pass_is_three_module_passes():
         assert got[i] == pytest.approx(2 * enc[i] + dec[i])
     # at B = 7000 every layer is bound by its operations
     assert enc[2] == pytest.approx(enc[0] / 67e12)
+
+
+def _fc_tick_share(window, ticks=3, fc_s=1e-3):
+    """`fc_roofline.tick` of `ticks` ticks whose `fc_` kernels ran `fc_s`."""
+    trace = Trace(device_ops=[("fc_module_kernel", 0.0, fc_s)],
+                  window_s=fc_s, busy_s=fc_s)
+    ctx = cli.Readings(ALL, {}, trace, {"ticks": ticks}, window)
+    return mf.reader("fc_roofline.tick")(ctx)
+
+
+def test_a_base_tick_counts_two_passes_and_a_nap_tick_is_unchanged():
+    """BASE: the encoder and the decoder, no NAP product.  NAP: three module
+    passes and 2bKJ, the numbers the NAP cell read before BASE had a
+    cell, to the last digit."""
+    enc = counts.module_cost(ALL, "encoder", 10)[2]
+    dec = counts.module_cost(ALL, "decoder", 10)[2]
+    assert counts.base_model_flops(ALL, 10) == 2 * 10 * 10_201_918
+    assert _fc_tick_share({"batch": 10, "nap": False}) == pytest.approx(
+        100.0 * 3 * (enc + dec) / 1e-3, rel=1e-12)
+    assert counts.score_model_flops(ALL, 10, 5482) == 907_104_020.0
+    nap_least = 1.8667098507462688e-05
+    assert counts.rapp_fc_cost(ALL, 10)[2] == nap_least
+    nap = {"batch": 10, "nap": True, "k": 5482, "j": 5482}
+    assert _fc_tick_share(nap) == 100.0 * 3 * nap_least / 1e-3
+
+
+@pytest.fixture(scope="module")
+def tick_readings():
+    """The readings of a short window of each tick cell at tiny sizes."""
+    manifest = mf.Manifest(mf.BENCH.rsplit("/", 1)[0])
+    out = {}
+    for cell in ("all_1728.tick_base", "all_1728.tick_nap"):
+        c = manifest.cell(cell)
+        config = {**manifest.config(c), **SIZES[cell]["config"]}
+        traffic = {**mf.traffic(c["traffic"]), **SIZES[cell]["traffic"]}
+        entry = mf.entry(traffic["entry"])(config, traffic, SEED, "cpu")
+        entry.window(0.05)
+        out[cell] = (config, entry.readings())
+    return out
+
+
+def test_a_tick_entry_counts_the_model_flops_of_its_score(tick_readings):
+    config, base = tick_readings["all_1728.tick_base"]
+    assert base["nap"] is False and "k" not in base and "j" not in base
+    assert base["model_flops"] / base["ticks"] == 2.0 * 10 * (
+        counts.weight_count(config))
+    _, nap = tick_readings["all_1728.tick_nap"]
+    # the NAP cell's readings before BASE had a cell, for this seed
+    assert (nap["nap"], nap["k"], nap["j"]) == (True, 2616, 96)
+    assert nap["model_flops"] / nap["ticks"] == 96_268_800.0
+
+
+def test_a_base_set_up_fits_no_whitening(tick_readings):
+    base = tick_readings["all_1728.tick_base"][1]["setup_spans_s"]
+    nap = tick_readings["all_1728.tick_nap"][1]["setup_spans_s"]
+    assert sorted(base) == ["inputs", "warm_up"]
+    assert sorted(nap) == ["fit_windows", "inputs", "nap_fit", "warm_up"]

@@ -19,6 +19,10 @@ SIZES = {
         "config": {"n_layers": 2, "btl_size": 16, "nap_fit_rows": 96},
         "traffic": {"pool_steps": 64, "warmup_ticks": 2, "trace_ticks": 2,
                     "check_ticks": 4}},
+    "all_1728.tick_base": {
+        "config": {"n_layers": 2, "btl_size": 16, "nap_fit_rows": 96},
+        "traffic": {"pool_steps": 64, "warmup_ticks": 2, "trace_ticks": 2,
+                    "check_ticks": 4}},
     "hand_camera_1024.score_offline": {
         "config": {"input_size": 64, "n_layers": 3, "btl_size": 8,
                    "nap_fit_rows": 256, "batch_size": 100},
@@ -61,6 +65,15 @@ def test_a_tick_altered_where_it_is_produced_is_caught(monkeypatch):
     monkeypatch.setattr(streaming, "_tick_nap",
                         _altered(streaming._tick_nap, 3))
     assert not _run("all_1728.tick_nap")["correct"]
+
+
+def test_a_base_tick_altered_where_it_is_produced_is_caught(monkeypatch):
+    import icra2021_multimodal_ad_tpu_torch.data.streaming as streaming
+
+    monkeypatch.setattr(streaming, "_tick_base",
+                        _altered(streaming._tick_base, 3))
+    result = _run("all_1728.tick_base")
+    assert not result["correct"], result["checks"]
 
 
 @pytest.mark.parametrize("which", [0, 1])

@@ -82,21 +82,17 @@ def test_the_training_readers_divide_by_the_jobs():
     trace = _trace(host, gaps=[(5, 7), (10, 14)])
     ctx = _ctx(trace)
     read = {m: mf.reader(m)(ctx) for m in (
-        "train_setup_ms", "train_eager_epoch_ms", "train_capture_ms",
-        "train_end_epoch_ms", "idle_host_ms.train")}
+        "train_setup_ms", "train_end_epoch_ms", "idle_host_ms.train")}
     # two jobs; of the idle, the part under the sums (10-12) and under no
     # span (13-13.5) left out
     assert read == {"train_setup_ms": pytest.approx(1.0),
-                    "train_eager_epoch_ms": pytest.approx(1.5),
-                    "train_capture_ms": pytest.approx(1.0),
                     "train_end_epoch_ms": pytest.approx(0.5),
                     "idle_host_ms.train": pytest.approx(1.75)}
 
 
 @pytest.mark.parametrize("metric", [
     "tick_stage_ms", "tick_launch_ms", "tick_collect_ms", "idle_host_ms.tick",
-    "train_setup_ms", "train_eager_epoch_ms", "train_capture_ms",
-    "train_end_epoch_ms", "idle_host_ms.train"])
+    "train_setup_ms", "train_end_epoch_ms", "idle_host_ms.train"])
 def test_a_reader_that_finds_no_span_returns_none(metric):
     """The parent's program records no span: every reader returns None,
     never 0; the idle readers also where the card ran nothing."""
@@ -105,16 +101,15 @@ def test_a_reader_that_finds_no_span_returns_none(metric):
     if metric.startswith("idle_"):
         host = TICK + [("train.job", 12, 13)]
         assert mf.reader(metric)(_ctx(_trace(host, busy_s=0.0))) is None
-    if metric == "train_capture_ms":
-        one_epoch = _trace([("train.job", 0, 5), ("train.setup", 1, 2)])
-        assert mf.reader(metric)(_ctx(one_epoch)) is None
 
 
 @pytest.mark.parametrize("cell, metrics", [
     ("all_1728.tick_nap", ["tick_stage_ms", "tick_launch_ms",
                            "tick_collect_ms"]),
-    ("all_1728.train", ["train_setup_ms", "train_eager_epoch_ms",
-                        "train_capture_ms", "train_end_epoch_ms"])])
+    ("all_1728.train", ["train_setup_ms", "train_end_epoch_ms",
+                        "train_rebind_ms"]),
+    ("all_1728.tick_base", ["tick_stage_ms", "tick_launch_ms",
+                            "tick_collect_ms"])])
 def test_a_traced_run_reports_its_span_metrics(cell, metrics):
     """A whole traced run at tiny sizes on the CPU reports each span metric
     of its cell, above 0; the idle readers, with no card, report none."""
