@@ -8,8 +8,11 @@ the faults', seed by seed, on the card at the cell's own sizes.
 cell's load, as a run compares them), `tf32` (the plain reference in fp32
 with TF32 products, put in the program's place), `float32` (the same with
 TF32 off), `tf32_ae` (tick cells: the frontend in fp32, the autoencoder
-and its score in TF32), `fault:<stale|half_batch|altered>` (training: the reference in
-fp32 with the fault planted), `planted:<fault>` (training: the program
+and its score in TF32), `e4m3` (the bf16 tick: the frontend in fp32, the
+float64 whitening, the autoencoder and the NAP score on e4m3 operands;
+`benchmark/reference/precision.py`), `fault:<stale|half_batch|altered>`
+(training: the reference in fp32 with the fault planted),
+`planted:<fault>` (training: the program
 with a fault of `benchmark/controls/faults.py` planted in its replayed
 epochs, a set-up and window of its own).  Each seed is one set-up; every
 number goes to standard output as one JSON line.  `--diagnose` adds, for
@@ -127,7 +130,7 @@ def main(argv=None) -> int:
                 emit(args.workload, seed, what, checks)
             if args.diagnose:
                 controls = [w for w in whats
-                            if w in ("tf32", "float32", "tf32_ae")]
+                            if w in ("tf32", "float32", "tf32_ae", "e4m3")]
                 print(json.dumps({"cell": args.workload, "seed": seed,
                                   "diagnose": diagnose(entry, controls)}),
                       flush=True)

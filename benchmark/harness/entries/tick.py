@@ -1,7 +1,10 @@
 """The robot's tick: `StreamingDetector.run`, one robot in a closed loop.
 
 The traffic's `nap` picks the score: NAP, or BASE (the mean squared
-reconstruction error, the robot's default).  Set-up draws the autoencoder
+reconstruction error, the robot's default); its `compute_dtype`, where it
+has one, the serving bundle's type (bf16: the streaming CLI's
+`--compute_dtype bfloat16`, which floors the NAP whitening at 1e-6 of its
+largest variance as the configuration does).  Set-up draws the autoencoder
 and the fusion projection; for NAP it fits the whitening with the
 program's own path (its realtime frontend fuses `nap_fit_rows` windows from
 simulated steps, `ops/rapp.get_diffs` and `ops/scoring.nap_fit` fit them),
@@ -66,7 +69,11 @@ class Entry:
         self.b = b = int(traffic["batch"])
         self.nap = bool(traffic["nap"])
         self.setup = SetupSpans(device)
-        cfg = port_config(config, batch_size=b)
+        # the traffic's serving type, which only the detector's serving
+        # bundle reads; the weights and the NAP fit stay in the
+        # configuration's type, as the streaming CLI loads them
+        cfg = port_config(config, batch_size=b,
+                          compute_dtype=counts.compute_dtype(config, traffic))
         with self.setup.span("inputs"):
             self.weights = inputs.ae_weights(config, seed, device,
                                              trained=True)
@@ -233,16 +240,21 @@ class Entry:
     def reference(self, name: str = "float64") -> dict:
         """The reference in precision `name` (a split control's for each
         part) on the sampled ticks: its whitening fitted from the fit ticks
-        ("fit"), the ticks' windows' diffs, and their scores (NAP through
-        its own fit, or BASE)."""
+        ("fit"), or the fit of the precision a split control names for it,
+        cast to this one's type; the ticks' windows' diffs, and their
+        scores (NAP through that fit, or BASE)."""
         if name in self.refs:
             return self.refs[name]
         ticks, _ = self._sample()
         dev, b = self.device, self.b
         n_fit = int(self.config["nap_fit_rows"])
+        # a split control may take its fit from another precision's run
+        own_fit = part(name, "fit") == name
+        other_fit = (None if own_fit or not self.nap
+                     else self.reference(part(name, "fit"))["fit"])
         with precision(part(name, "frontend")) as dtype:
             x = frontend.tick_windows(self.fusion, ticks, b, dtype, dev)
-            if self.nap:
+            if self.nap and own_fit:
                 x_fit = frontend.tick_windows(self.fusion, self.fit_ticks, b,
                                               dtype, dev)[:n_fit]
         with precision(part(name, "ae")) as dtype:
@@ -250,8 +262,12 @@ class Entry:
             if not self.nap:
                 out = {"scores": ((model.forward(x) - x) ** 2).mean(dim=1)}
             else:
-                fit = nap.fit(ref_ae.concat_diffs(model, x_fit), self.floor)
-                del x_fit
+                if own_fit:
+                    fit = nap.fit(ref_ae.concat_diffs(model, x_fit),
+                                  self.floor)
+                    del x_fit
+                else:
+                    fit = {k: v.to(dtype) for k, v in other_fit.items()}
                 diffs = ref_ae.concat_diffs(model, x)
                 out = {"fit": fit, "diffs": diffs,
                        "scores": nap.score(fit, diffs)}

@@ -1,7 +1,7 @@
 """The FC kernel's roofline share over the traced ticks: each tick's module
 passes at the tick's batch, three with NAP (encoder on x, decoder, encoder
-on x_hat) and two with BASE (encoder, decoder), bound from shapes, over the
-device time of the `fc_` kernels."""
+on x_hat) and two with BASE (encoder, decoder), bound from shapes in the
+cell's compute type, over the device time of the `fc_` kernels."""
 
 from benchmark.harness import counts
 from benchmark.metrics._kernels import FC, share
@@ -13,4 +13,5 @@ def read(ctx):
         return None
     w = ctx.window
     cost = counts.rapp_fc_cost if w["nap"] else counts.forward_fc_cost
-    return share(ctx.trace, FC, n * cost(ctx.config, w["batch"])[2])
+    dtype = counts.compute_dtype(ctx.config, ctx.traffic)
+    return share(ctx.trace, FC, n * cost(ctx.config, w["batch"], dtype)[2])

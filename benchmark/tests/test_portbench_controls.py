@@ -1,8 +1,10 @@
-"""On the card: the control, the plain reference in TF32 put in the
-program's place, comes out not correct, and the program correct, at each
-cell's widths with fewer rows, ticks or epochs than a run takes; in the
-BASE tick also the control that lowers the autoencoder alone.  Skips where
-there is no card.  On the CPU: a split control lowers only its part."""
+"""On the card: the control, the plain reference one step below the
+cell's type put in the program's place (TF32 below fp32; e4m3 operands
+below the bf16 tick's), comes out not correct, and the program correct, at
+each cell's widths with fewer rows, ticks or epochs than a run takes; in
+the BASE tick also the control that lowers the autoencoder alone.  Skips
+where there is no card.  On the CPU: a split control lowers only its
+part."""
 
 import pytest
 import torch
@@ -13,11 +15,14 @@ SEED = 2 ** 31 + 23
 SMALLER = {
     "all_1728.tick_nap": ({}, {"check_ticks": 8}),
     "all_1728.tick_base": ({}, {"check_ticks": 8}),
+    "all_1728.tick_nap_bf16": ({}, {"check_ticks": 8}),
     "hand_camera_1024.score_offline": ({}, {"test_windows": 2800}),
     "all_1728.score_offline": ({}, {"test_windows": 2800}),
     "all_1728.train": ({"n_epochs": 2}, {"train_windows": 21000,
                                          "valid_windows": 2800}),
 }
+#: the control of a cell whose type is not fp32
+CONTROLS = {"all_1728.tick_nap_bf16": "e4m3"}
 
 
 @pytest.fixture
@@ -49,7 +54,8 @@ def test_the_control_fails_and_the_program_passes(card, cell):
     limits = mf.limits(cell)
     entry = _entry(cell, card)
     assert all(c.ok for c in entry.check(limits))
-    assert not all(c.ok for c in entry.control(limits, "tf32"))
+    control = CONTROLS.get(cell, "tf32")
+    assert not all(c.ok for c in entry.control(limits, control))
 
 
 @pytest.mark.cuda
@@ -90,3 +96,47 @@ def test_a_split_control_lowers_only_the_autoencoder(monkeypatch):
     assert low["scores"].dtype == torch.float32
     assert (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32) == before
+
+
+def _rounds_products() -> bool:
+    """Whether a product here takes e4m3 operands: 0.01 beside 1.0 rounds
+    to 4.5 / 448."""
+    got = torch.tensor([[1.0, 0.01]]) @ torch.ones(2, 1)
+    return float(got) != pytest.approx(1.01, rel=1e-6)
+
+
+def test_the_e4m3_control_lowers_only_the_autoencoder_and_the_score(
+        monkeypatch):
+    """`e4m3` on the bf16 tick: the frontend runs in fp32 with plain
+    products, the autoencoder and the NAP score with e4m3 operands, and
+    the whitening is the float64 reference's, cast to fp32."""
+    from benchmark.harness.entries import tick
+    from benchmark.tests.test_portbench_faults import SIZES
+
+    cell = "all_1728.tick_nap_bf16"
+    entry = _entry(cell, "cpu", SIZES[cell]["config"],
+                   SIZES[cell]["traffic"], seconds=0.05)
+    ref = entry.reference()
+    seen = {}
+
+    def watched(name, fn):
+        def wrapped(*args, **kwargs):
+            seen.setdefault(name, set()).add(
+                (torch.backends.cuda.matmul.allow_tf32, _rounds_products()))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(tick.frontend, "tick_windows",
+                        watched("frontend", tick.frontend.tick_windows))
+    monkeypatch.setattr(tick.ref_ae, "concat_diffs",
+                        watched("ae", tick.ref_ae.concat_diffs))
+    monkeypatch.setattr(tick.nap, "score", watched("score", tick.nap.score))
+    monkeypatch.setattr(tick.nap, "fit", watched("fit", tick.nap.fit))
+    low = entry.reference("e4m3")
+    assert seen == {"frontend": {(False, False)}, "ae": {(False, True)},
+                    "score": {(False, True)}}
+    assert not _rounds_products()
+    assert low["scores"].dtype == low["diffs"].dtype == torch.float32
+    for key, value in ref["fit"].items():
+        assert torch.equal(low["fit"][key], value.float()), key
+    assert not torch.equal(low["scores"], ref["scores"].float())

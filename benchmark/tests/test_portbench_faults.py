@@ -19,6 +19,10 @@ SIZES = {
         "config": {"n_layers": 2, "btl_size": 16, "nap_fit_rows": 96},
         "traffic": {"pool_steps": 64, "warmup_ticks": 2, "trace_ticks": 2,
                     "check_ticks": 4}},
+    "all_1728.tick_nap_bf16": {
+        "config": {"n_layers": 2, "btl_size": 16, "nap_fit_rows": 96},
+        "traffic": {"pool_steps": 64, "warmup_ticks": 2, "trace_ticks": 2,
+                    "check_ticks": 4}},
     "all_1728.tick_base": {
         "config": {"n_layers": 2, "btl_size": 16, "nap_fit_rows": 96},
         "traffic": {"pool_steps": 64, "warmup_ticks": 2, "trace_ticks": 2,
@@ -48,13 +52,13 @@ def test_a_sound_run_is_correct(cell):
     assert list(result)[-1] == "checks"
 
 
-def _altered(fn, index):
-    """`fn` with one answer of its result altered by 1 %."""
+def _altered(fn, index, factor=1.01):
+    """`fn` with one answer of its result altered by `factor` (1 %)."""
     def wrapped(*args, **kwargs):
         out = fn(*args, **kwargs)
         first = out[0] if isinstance(out, tuple) else out
         first = first.clone()
-        first[index] *= 1.01
+        first[index] *= factor
         return (first, *out[1:]) if isinstance(out, tuple) else first
     return wrapped
 
@@ -65,6 +69,24 @@ def test_a_tick_altered_where_it_is_produced_is_caught(monkeypatch):
     monkeypatch.setattr(streaming, "_tick_nap",
                         _altered(streaming._tick_nap, 3))
     assert not _run("all_1728.tick_nap")["correct"]
+
+
+#: the bf16 tick's largest `nap_score_gap` over the program's seeds on
+#: the H100 (PERF.md section 6), whose limit a score altered by ten times
+#: it has to fail
+BF16_SCORE_GAP_LOWER = 0.395
+
+
+def test_a_bf16_tick_altered_at_ten_times_its_widest_gap_is_caught(
+        monkeypatch):
+    import icra2021_multimodal_ad_tpu_torch.data.streaming as streaming
+
+    monkeypatch.setattr(streaming, "_tick_nap", _altered(
+        streaming._tick_nap, 3, 1.0 + 10 * BF16_SCORE_GAP_LOWER))
+    result = _run("all_1728.tick_nap_bf16")
+    assert not result["correct"], result["checks"]
+    assert (result["checks"]["nap_score_gap"]["value"]
+            > result["checks"]["nap_score_gap"]["limit"])
 
 
 def test_a_base_tick_altered_where_it_is_produced_is_caught(monkeypatch):
