@@ -30,6 +30,11 @@ Phases, each printing one JSON line or more:
    per layer (the module) is printed, not required; and the large-batch NAP
    score at the train CLI's shape (variants 0 and 1 share variant 4's
    order of sums);
+2c. the tick's front end (`ops/frontend_kernel.frontend_fuse`, one launch
+   from uint8 or fp32 payloads to fused windows) against its plain
+   version, the stock ops, at FRONTEND_B in both frame types, then its
+   `device_ms` and `time_ms` at FRONTEND_B with the L2 flushed beside its
+   bound and the stock ops';
 3. golden replay: the checked-in model, NAP stats and fixture windows,
    scored through both kernels, against the frozen `nap_score` column;
    then, on these degenerate stats, each bf16 NAP variant must sit
@@ -360,6 +365,10 @@ PNG_PROBE_EXPECTED = os.path.join(ROOT, "datasets", "png_resize",
 #: (the tick's 10, the score server's buckets 1, 16 and 32, both sides of
 #: SMALL_MAX_B and the kernels' largest, 64)
 SMALL_B = (1, 10, 16, 32, 33, 64)
+#: phase 2c's batches: the robot's tick and a large batch
+FRONTEND_B = (10, 8192)
+#: the fusion's tolerance (tests/test_torch_fusion.py)
+FRONTEND_TOL = dict(rtol=1e-5, atol=1e-6)
 SMALL_NAP_J = (400, 4096)
 #: the depth of one stage of the fp32 kernels' sums over K
 #: (`nap_score_staged`)
@@ -382,6 +391,9 @@ def require(cond: bool, what: str) -> None:
 
 def reset_counts() -> None:
     """Every kernel's count to 0, just before a path is driven."""
+    from icra2021_multimodal_ad_tpu_torch.ops.frontend_kernel import (
+        frontend_fuse,
+    )
     from icra2021_multimodal_ad_tpu_torch.ops.mlp_kernel import (
         fused_mlp_layer,
         fused_mlp_module,
@@ -392,6 +404,7 @@ def reset_counts() -> None:
     nap_score.launches = nap_score.small_launches = 0
     fused_mlp_layer.launches = fused_mlp_module.launches = 0
     fused_mlp_module.layers_run = int8_product.launches = 0
+    frontend_fuse.launches = 0
 
 
 def read_counts() -> dict:
@@ -399,7 +412,11 @@ def read_counts() -> dict:
     (fused_mlp, variants 0-3) and whole-module launches (fused_mlp_module,
     variant 4), the FC layers that ran on the kernel either way
     (fc_layers), the NAP kernel's launches of every variant (nap_score)
-    and of the one-launch variant (nap_score_small), and the int8 GEMMs."""
+    and of the one-launch variant (nap_score_small), the int8 GEMMs and
+    the tick's front end (frontend_fuse)."""
+    from icra2021_multimodal_ad_tpu_torch.ops.frontend_kernel import (
+        frontend_fuse,
+    )
     from icra2021_multimodal_ad_tpu_torch.ops.mlp_kernel import (
         fused_mlp_layer,
         fused_mlp_module,
@@ -413,7 +430,8 @@ def read_counts() -> dict:
             "fused_mlp_module": fused_mlp_module.launches,
             "fc_layers": fused_mlp_layer.launches
             + fused_mlp_module.layers_run,
-            "int8_product": int8_product.launches}
+            "int8_product": int8_product.launches,
+            "frontend_fuse": frontend_fuse.launches}
 
 
 def pearson(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -600,8 +618,8 @@ def phase_device_and_build() -> str:
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    built = _build.build(["nap_score", "fused_mlp"])
-    for name in ("nap_score", "fused_mlp"):
+    built = _build.build(["nap_score", "fused_mlp", "frontend_fuse"])
+    for name in ("nap_score", "fused_mlp", "frontend_fuse"):
         _build.load(name)
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_table(info["log"]) for name, info in built.items()}
@@ -983,6 +1001,126 @@ def phase_small_batches(smi: str) -> dict:
     require(all(faster.values()), f"a small-batch variant is not faster than "
                                   f"variant 0 at B <= SMALL_MAX_B: {faster}")
     return times
+
+
+def frontend_bound(b: int, frames: torch.dtype):
+    """The front end at B rows: (bytes, operations).  The payloads, the
+    fusion weights and the (B, 1728) fp32 windows moved once, against the
+    convs' 2 x MACs, bias and ReLU (2 an output) and the normalization (4
+    an input value).  A MAC counts where it reads the input: a padded 3 x 3
+    conv over 16 x 16 reads (16 * 3 - 2)^2 of its 16 * 16 * 9 taps a
+    channel pair, and lid1's two outputs 9 and 13 of their 18."""
+    taps = (16 * 3 - 2) ** 2
+    convs = [  # (outputs, MACs) of a window's eight convs
+        (16 * 16 * 16, 16 * 16 * 16 * 3 * 4), (16 * 16 * 16, 16 * 16 * taps),
+        (16 * 8 * 8, 16 * 8 * 8 * 16 * 4), (8 * 16 * 16, 8 * 16 * 16 * 4),
+        (8 * 16 * 16, 8 * 8 * taps), (8 * 8 * 8, 8 * 8 * 8 * 8 * 4),
+        (8 * 2, 8 * (9 + 13)), (16 * 1, 16 * 8 * 2)]
+    # the convs' weights (OIHW) and biases
+    weights = (16 * 3 * 4 + 16 * 16 * 9 + 16 * 16 * 4 + 8 * 1 * 4 + 8 * 8 * 9
+               + 8 * 8 * 4 + 8 * 1 * 18 + 16 * 8 * 2
+               + 16 * 3 + 8 * 3 + 8 + 16)
+    size = torch.tensor([], dtype=frames).element_size()
+    nbytes = (b * 4096 * size + 4 * (b * 14 + weights) + 4 * b * 1728)
+    ops = b * (sum(2 * macs + 2 * o for o, macs in convs)
+               + 4 * (4096 + 1 + 13))
+    return nbytes, ops
+
+
+def frontend_times(params, mods, flush) -> dict:
+    """The front end's `device_ms` and `time_ms` on payloads `mods` with
+    the L2 flushed, the kernel's and the stock ops', beside the kernel's
+    bound, with the `kernels` line's keys."""
+    from icra2021_multimodal_ad_tpu_torch.ops.frontend_kernel import (
+        frontend_fuse,
+        frontend_fuse_plain,
+    )
+
+    b, frames = mods[0].shape[0], mods[0].dtype
+    nbytes, ops = frontend_bound(b, frames)
+    least, by = bound(nbytes, ops, torch.float32)
+    row = dict(
+        b=b, frames=str(frames),
+        device_ms=device_ms(lambda: frontend_fuse(params, *mods), flush),
+        time_ms=time_ms(lambda: frontend_fuse(params, *mods), flush),
+        plain_device_ms=device_ms(lambda: frontend_fuse_plain(params, *mods),
+                                  flush),
+        plain_time_ms=time_ms(lambda: frontend_fuse_plain(params, *mods),
+                              flush),
+        bound_ms=least, bound_by=by, matmul_ms=None, variant=None)
+    row.update(ms=row["time_ms"], plain_ms=row["plain_time_ms"],
+               tflops=ops / (row["device_ms"] * 1e9))
+    return row
+
+
+def phase_frontend_kernel(smi: str) -> dict:
+    """2c: the tick's front end in one launch against the stock ops at
+    FRONTEND_B, in uint8 and fp32 frames (and a constant mic batch, whose
+    columns both make NaN), then both timed with the L2 flushed beside
+    the kernel's bound.  Returns ({B: time row} of the uint8 frames, the
+    tick's, worst abs err against the stock ops)."""
+    from icra2021_multimodal_ad_tpu_torch.ops.frontend_kernel import (
+        frontend_fuse,
+        frontend_fuse_plain,
+    )
+    from icra2021_multimodal_ad_tpu_torch.ops.fusion import fusion_init
+
+    params = fusion_init(17, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(29)
+
+    def payloads(b, frames):
+        r = torch.randint(0, 256, (b, 32, 32, 3), generator=g, device="cuda")
+        d = torch.randint(0, 256, (b, 1, 32, 32), generator=g, device="cuda")
+        if frames == torch.float32:  # fractional pixels
+            r = r + torch.rand(r.shape, generator=g, device="cuda") / 2
+            d = d + torch.rand(d.shape, generator=g, device="cuda") / 2
+        t = torch.rand(b, 1, generator=g, device="cuda") * 400
+        m = torch.randn(b, 1, 13, generator=g, device="cuda") * 100 - 300
+        return r.to(frames), d.to(frames), t, m
+
+    rows, times, flush = [], {}, l2_flush()
+    for b in FRONTEND_B:
+        for frames in (torch.uint8, torch.float32):
+            mods = payloads(b, frames)
+            before = frontend_fuse.launches
+            got = frontend_fuse(params, *mods)
+            want = frontend_fuse_plain(params, *mods)
+            again = frontend_fuse(params, *mods)
+            torch.cuda.synchronize()
+            rows.append(dict(
+                b=b, frames=str(frames), launches=frontend_fuse.launches
+                - before, max_abs_err=float((got - want).abs().max()),
+                equal_cols=int((got == want).all(0).sum()),
+                same_bits_again=bool(torch.equal(got, again)),
+                ok=bool(torch.allclose(got, want, **FRONTEND_TOL))))
+            if frames != torch.uint8:
+                continue
+            times[b] = frontend_times(params, mods, flush)
+    r, d, t, m = payloads(10, torch.uint8)
+    m = torch.full_like(m, -42.0)
+    got = frontend_fuse(params, r, d, t, m)
+    want = frontend_fuse_plain(params, r, d, t, m)
+    nan_ok = bool(got[:, 1600:].isnan().all() and want[:, 1600:].isnan().all()
+                  and torch.isfinite(got[:, :1600]).all()
+                  and torch.allclose(got, want, equal_nan=True,
+                                     **FRONTEND_TOL))
+    resources = {k: v for k, v in (PTXAS.get("frontend_fuse") or {}).items()
+                 if k.startswith("frontend_fuse_kernel")}
+    for row in rows:
+        emit(phase="frontend_kernel", card=smi, tol=FRONTEND_TOL, **row)
+    for b, row in times.items():
+        emit(phase="times", kernel="frontend_fuse", card=smi, **row)
+    emit(phase="frontend_kernel", card=smi, constant_mic_nan_ok=nan_ok,
+         ptxas=resources)
+    for row in rows:
+        require(row["ok"] and row["launches"] == 2 and row["same_bits_again"],
+                f"frontend_fuse against the stock ops: {row}")
+    require(nan_ok, "frontend_fuse: a constant mic batch is not NaN in its "
+                    "columns alone, as the stock ops' are")
+    require(resources and all(v["spill_bytes"] == 0
+                              for v in resources.values()),
+            f"frontend_fuse_kernel: no ptxas entry or spills: {resources}")
+    return times, max(row["max_abs_err"] for row in rows)
 
 
 def path_mlp_vs_plain(path: str, model, windows: dict, seen: set,
@@ -1958,7 +2096,9 @@ def streaming_runs(cfg, smi: str, runs: dict = STREAM_RUNS) -> dict:
         # module launch a pass, a bf16 tick's n_layers launches a pass; the
         # guard scores its probe (one tick's windows) once on each of its
         # two bundles, the fp32 one through the one-launch NAP variant; an
-        # int8 tick whitens with one int8 GEMM and launches no NAP kernel
+        # int8 tick whitens with one int8 GEMM and launches no NAP kernel;
+        # every tick's windows and the guard's probe fuse in one front-end
+        # launch
         fp32 = "--compute_dtype" not in flags
         passes = STREAM_TICKS * (3 if nap else 2)
         want = {"fused_mlp": (0 if fp32 else passes * cfg.n_layers)
@@ -1972,7 +2112,8 @@ def streaming_runs(cfg, smi: str, runs: dict = STREAM_RUNS) -> dict:
                                            else 0),
                 "nap_score_small": (STREAM_TICKS if nap and fp32 else 0)
                 + (1 if guarded else 0),
-                "int8_product": (STREAM_TICKS + guarded) if int8 else 0}
+                "int8_product": (STREAM_TICKS + guarded) if int8 else 0,
+                "frontend_fuse": STREAM_TICKS + guarded}
         guard = re.search(r"rel err ([0-9.]+) <= tol ([0-9.]+)", log)
         pre = float(trace[:STREAM_ANOMALY_AFTER].mean())
         post = float(trace[settled:].mean())
@@ -1994,7 +2135,7 @@ def streaming_runs(cfg, smi: str, runs: dict = STREAM_RUNS) -> dict:
                 and bool(np.isfinite(trace).all()),
                 f"{name}: trace {trace.shape} not finite (60, 10)")
         require(launches == want, f"{name}: launches {launches}, want {want}"
-                                  f" (every tick through both kernels)")
+                                  f" (every tick through the kernels)")
         captured_vs_eager(name, argv + flags, trace)
         if name in ("fp32_base", "fp32_nap", "int8_nap_guarded"):
             require(post > 2.0 * pre, f"{name}: after the drop {post}, "
@@ -2014,18 +2155,24 @@ def streaming_runs(cfg, smi: str, runs: dict = STREAM_RUNS) -> dict:
 
 
 def streaming_kernels(cfg, rt, fp, seen: set, flush):
-    """8d: both kernels against their plain versions on one tick's own
+    """8d: the kernels against their plain versions on one tick's own
     inputs (B = 10): the FC kernel at every layer input of the tick's diff
     extraction, and the NAP kernel on its concat diffs, in fp32 (un-floored
-    stats, as the fp32 tick) and bf16 (floored stats, as the bf16 tick);
-    then both kernels' times there.  Returns (worst abs err, time rows), by
-    kernel."""
+    stats, as the fp32 tick) and bf16 (floored stats, as the bf16 tick),
+    and the front end on the tick's staged payloads; then the kernels'
+    times there.  Returns (worst abs err, time rows), by kernel."""
     from icra2021_multimodal_ad_tpu_torch.data.streaming import (
         SimulatedSensors,
+        _stack_host_inputs,
         hsr_window_batch,
     )
     from icra2021_multimodal_ad_tpu_torch.models.autoencoder import ae_pack
     from icra2021_multimodal_ad_tpu_torch.models.builder import load_model
+    from icra2021_multimodal_ad_tpu_torch.ops.frontend_kernel import (
+        frontend_fuse,
+        frontend_fuse_plain,
+        stage,
+    )
     from icra2021_multimodal_ad_tpu_torch.ops.mfcc import (
         mfcc_from_int16_chunks_device,
     )
@@ -2082,6 +2229,19 @@ def streaming_kernels(cfg, rt, fp, seen: set, flush):
                         pack.encoder.layers[0], x, flush, 0)),
                     "fused_mlp_module": dict(layer="encoder", **module_times(
                         pack.encoder, x, flush))}
+    mods = stage(*(torch.as_tensor(v, device=DEV) for v in _stack_host_inputs(
+        rt, *ring_snapshot(src), mic)))
+    got, ref = frontend_fuse(fp, *mods), frontend_fuse_plain(fp, *mods)
+    torch.cuda.synchronize()
+    worst["frontend_fuse"] = float((got - ref).abs().max())
+    ok = bool(torch.allclose(got, ref, **FRONTEND_TOL))
+    emit(phase="kernel_vs_plain", kernel="frontend_fuse",
+         case="streaming tick", b=int(got.shape[0]),
+         frames=str(mods[0].dtype), max_abs_err=worst["frontend_fuse"],
+         tol=FRONTEND_TOL, ok=ok)
+    require(ok, f"frontend_fuse on the streaming tick disagrees with the "
+                f"stock ops (max abs err {worst['frontend_fuse']})")
+    rows["frontend_fuse"] = frontend_times(fp, mods, flush)
     for name, row in rows.items():
         row.update(dtype="float32", path="streaming")
         emit(phase="times", kernel=name, **row)
@@ -2104,7 +2264,10 @@ def busy_us(kernels) -> float:
 #: the device kernels of csrc/, as the profiler names them
 OUR_KERNELS = ("fc_module_kernel", "fc_simt_kernel", "fc_wgmma_kernel",
                "nap_small_kernel", "nap_simt_kernel", "nap_wgmma_kernel",
-               "nap_center_kernel", "nap_reduce_kernel")
+               "nap_center_kernel", "nap_reduce_kernel",
+               "frontend_fuse_kernel")
+#: parts of the names of cuDNN's convolution kernels
+CONV_KERNELS = ("fprop", "convolve", "cudnn")
 
 
 def profile_calls(fn, calls: int = 10) -> dict:
@@ -2120,8 +2283,8 @@ def profile_calls(fn, calls: int = 10) -> dict:
     to, the least and the largest time from a launch on the host to its
     first device event (negative where the profiler moved the card's
     clock early), the process's age, the device's busy share (the union of
-    the events' intervals over the calls) and the device ms of the
-    busiest kernels."""
+    the events' intervals over the calls), the device ms of the busiest
+    kernels and cuDNN's convolution kernels per call."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -2170,6 +2333,9 @@ def profile_calls(fn, calls: int = 10) -> dict:
     mine = {k: sum(k in e.name for e in events) / calls for k in OUR_KERNELS}
     return {"call_ms": wall_us / calls / 1e3,
             "kernel_launches_per_call": {k: n for k, n in mine.items() if n},
+            "conv_kernels_per_call": sum(
+                any(c in e.name for c in CONV_KERNELS) for e in events)
+            / calls,
             "graph_launches_per_call": sum(
                 "GraphLaunch" in n for n in host) / calls,
             "host_kernel_launches_per_call": sum(
@@ -2201,7 +2367,8 @@ def tick_breakdown(rt, model, stats, fp, src, x) -> None:
     launch from the host; an fp32 one must show 2 (BASE) or 3 (NAP)
     whole-module FC launches and one NAP launch per NAP tick in the
     profiler's kernels, and none of the per-layer or three-launch
-    variants, as the eager one does."""
+    variants, as the eager one does; every tick, eager or captured, one
+    front-end launch and no cuDNN convolution."""
     from icra2021_multimodal_ad_tpu_torch.data.streaming import (
         StreamingDetector,
         hsr_window_batch,
@@ -2254,8 +2421,15 @@ def tick_breakdown(rt, model, stats, fp, src, x) -> None:
                     f"{got['graph_launches_per_call']} graph launches and "
                     f"{got['host_kernel_launches_per_call']} kernel launches"
                     f" from the host per tick, want 2 and 0")
+            for how, prof in profiles.items():
+                front = (prof["kernel_launches_per_call"].get(
+                    "frontend_fuse_kernel"), prof["conv_kernels_per_call"])
+                require(front == (1, 0),
+                        f"{name} {how} tick (nap {nap}): frontend_fuse_kernel"
+                        f" and cuDNN convs per tick {front}, want (1, 0)")
             if name == "float32":
-                want = {"fc_module_kernel": 3 if nap else 2}
+                want = {"fc_module_kernel": 3 if nap else 2,
+                        "frontend_fuse_kernel": 1}
                 if nap:
                     want["nap_small_kernel"] = 1
                 for how, prof in profiles.items():
@@ -4652,6 +4826,7 @@ def main() -> int:
     from icra2021_multimodal_ad_tpu_torch.ops import mlp_kernel, nap_kernel
 
     smi = phase_device_and_build()
+    frontend_rows, worst_frontend = phase_frontend_kernel(smi)
     seen: set = set()
     worst = {"nap_score": nap_vs_plain(seen), "fused_mlp": mlp_vs_plain(seen)}
     every = {(name, v) for name, module in (("nap_score", nap_kernel),
@@ -4696,7 +4871,7 @@ def main() -> int:
                     if k == "fc_layers" or path not in (
                         "trainer_programs", "sharded_programs")),
                 f"{k} launched on no path of {launches[k]}")
-    for k in ("fused_mlp_module", "nap_score_small"):
+    for k in ("fused_mlp_module", "nap_score_small", "frontend_fuse"):
         require(launches[k]["streaming"] > 0,
                 f"{k} did not launch on the streaming path")
     for k in ("nap_score", "fused_mlp"):
@@ -4741,6 +4916,15 @@ def main() -> int:
             stream_rows["nap_score_small"],
             [timed(r, f"small batches J = {shape}") for (name, shape, _), r
              in small_rows.items() if name == "nap_score_small"],
+            path="streaming"),
+        kernel_entry(
+            "frontend_fuse",
+            "icra2021_multimodal_ad_tpu_torch/csrc/frontend_fuse.cu", None,
+            launches["frontend_fuse"],
+            max(worst_frontend, stream_worst["frontend_fuse"]),
+            stream_rows["frontend_fuse"],
+            [timed(row, "synthetic payloads")
+             for row in frontend_rows.values()],
             path="streaming"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,12 +41,8 @@ import numpy as np
 import torch
 
 from icra2021_multimodal_ad_tpu_torch.models.autoencoder import AutoEncoder
-from icra2021_multimodal_ad_tpu_torch.ops import serving
-from icra2021_multimodal_ad_tpu_torch.ops.fusion import (
-    FusionParams,
-    fuse,
-    normalize_mods,
-)
+from icra2021_multimodal_ad_tpu_torch.ops import frontend_kernel, serving
+from icra2021_multimodal_ad_tpu_torch.ops.fusion import FusionParams
 from icra2021_multimodal_ad_tpu_torch.ops.mfcc import (
     N_MFCC,
     floored_wave,
@@ -233,8 +229,8 @@ def _check_rows(config, force_q, hand_q, depth_q, mic_frames) -> None:
 def _stack_host_inputs(config, force_q, hand_q, depth_q, mic_frames,
                        out=None):
     """Ring snapshots -> stacked host arrays, with the row-count guard: r
-    (B, H, W, 3) as the camera publishes it (the CHW transpose is the
-    device's, in `_normalize_and_fuse`), d with a channel dim, t and m as
+    (B, H, W, 3) as the camera publishes it (`_normalize_and_fuse` reads
+    it so on the device), d with a channel dim, t and m as
     columns.  Camera frames keep their staging type (`_payload_dtype`).
     Device MFCC frames stay on the device.  `out`: the (r, d, t) arrays to
     stack into, a tick program's pinned staging; m is then the caller's."""
@@ -258,14 +254,18 @@ def _stack_host_inputs(config, force_q, hand_q, depth_q, mic_frames,
 def _normalize_and_fuse(fusion_params: FusionParams, r, d, t, m
                         ) -> torch.Tensor:
     """Device side of the window batch: payloads go to the fusion params'
-    device (a no-op for a program's device inputs), the camera's HWC frames
-    become CHW there, then the fixed-range normalization (images [0, 255],
-    force [0, 400], mic by its batch min-max; HsrDataset,
-    data_loaders.py:714-731) and the fusion, in fp32."""
+    device (a no-op for a program's device inputs), then the fixed-range
+    normalization (images [0, 255], force [0, 400], mic by its batch
+    min-max; HsrDataset, data_loaders.py:714-731) and the fusion, in fp32:
+    on the card one launch of `ops/frontend_kernel.frontend_fuse` on the
+    payloads as it reads them (`frontend_kernel.stage`), on the CPU its
+    plain version, the stock ops."""
     dev = fusion_params.rgb1["w"].device
     r, d, t, m = (torch.as_tensor(v, device=dev) for v in (r, d, t, m))
-    r, d, t, m = normalize_mods(r.permute(0, 3, 1, 2).contiguous(), d, t, m)
-    return fuse(fusion_params, sensor="All", r=r, d=d, t=t, m=m)
+    if dev.type != "cuda":
+        return frontend_kernel.frontend_fuse_plain(fusion_params, r, d, t, m)
+    return frontend_kernel.frontend_fuse(fusion_params,
+                                         *frontend_kernel.stage(r, d, t, m))
 
 
 def hsr_window_batch(config, fusion_params: FusionParams,

@@ -18,7 +18,10 @@ The mic path drives the LiDAR convs `lid1`/`lid2`, as the reference does.
 `fusion_init(seed)` draws the weights JAX draws for
 `fusion_init(jax.random.PRNGKey(seed))`, bit for bit, through the numpy
 replay of JAX's PRNG (`utils/jax_prng.py`).  The convs are stock
-`F.conv2d`/`F.conv1d` (cuDNN on the card) in fp32 with TF32 off.
+`F.conv2d`/`F.conv1d` (cuDNN on the card) in fp32 with TF32 off; on the
+card the realtime tick normalizes and fuses in one hand-written kernel
+instead (`ops/frontend_kernel.py`), whose plain version is
+`normalize_mods` + `fuse(sensor="All")`.
 """
 
 from __future__ import annotations
