@@ -102,11 +102,7 @@ Phases, each printing one JSON line or more:
    alone, and whole ticks, captured and eager, under torch.profiler,
    where a captured tick must be 2 graph launches and no kernel launch
    from the host, and an fp32 one run 2 (BASE) or 3 (NAP) whole-module FC
-   launches and one NAP launch and nothing of the per-layer variants; (e)
-   tick p50 / p95 and the device's busy share, captured against eager,
-   and pipelined against sequential (both captured, through `run`), each
-   alternated A B B A TICK_AB_ROUNDS times with the bf16 eager NAP tick
-   timed in every run as the control;
+   launches and one NAP launch and nothing of the per-layer variants;
 9. the ETL: raw episodes in the full schema (963 LiDAR values, 24 x 32
    PNGs, 44.1 kHz stereo wav), cut to 24 episodes of 6 s for time, through
    `concatdata_maker.main` on the card: the shards read back by the native
@@ -134,16 +130,15 @@ Phases, each printing one JSON line or more:
    bundle, the fp32 ones against the live kernel path at rtol 1e-4, one
    loaded and run by a process that imports torch alone; (c) `serve.main`
    on loopback in fp32, bf16 and bf16 + int8 (both guarded): ragged
-   requests of 1, 10, 33 and 1000 rows of every op against the in-process
-   bundle, sensor ops, `native/score_client.cpp` built with g++, round
-   trips at B = 10 and 1024; every request a CUDA graph replay per chunk
+   requests of 1, 10, 33, 1000 and 1024 rows of every op against the
+   in-process bundle, sensor ops, `native/score_client.cpp` built with g++;
+   every request a CUDA graph replay per chunk
    (`ops/serving.ServingPrograms`): each (op, bucket) that the requests,
    the warm-up and the sensor request reached, captured against the eager
    server (`_score_eager`, `_score_sensor_op_eager`) bit for bit; one graph
    launch per chunk and no kernel launch from the host (torch.profiler);
-   capture ms per program, the programs' device and pinned memory and the
-   warm-up's seconds captured and eager; round-trip p50, eager (A) against
-   captured (B), A B B A with the `info` round trip as the control; (d) raw episodes in the legacy schema through
+   the programs' device and pinned memory and the warm-up's seconds
+   captured and eager; (d) raw episodes in the legacy schema through
    `concatdata_maker.main --variant legacy` and `--variant frames`, read
    back with the rows the CSVs give; (e) the int8 whitening's device time
    beside the fp32 and bf16 NAP kernels' at K = 5482, J = 4096;
@@ -166,9 +161,7 @@ Phases, each printing one JSON line or more:
    state, histories; fused: their fp32 quotients), the FC kernel's
    launches by count and against its plain version on the validation
    program's shard; captured epochs under torch.profiler (2 graph launches
-   an epoch, no kernel launch from the host); ms per epoch, captured fused
-   (A) against the meshed eager loop (B), A B B A twice, with a
-   single-device captured epoch as the control;
+   an epoch, no kernel launch from the host);
 13. the trainer's epoch programs (`train.EpochPrograms`) at Config()
    widths on phase 5's windows, 3 epochs, in fp32, bf16 training, bf16
    params and VIB (k 2): the eager loop (`train_all_epochs_eager`), the
@@ -182,11 +175,7 @@ Phases, each printing one JSON line or more:
    (the first epoch eager, then replays) and against its plain version on
    the validation pass's inputs; captured epochs and eager ones under
    torch.profiler (a captured epoch 2 graph launches and no kernel launch
-   from the host, the FC kernel inside the validation graph); ms per
-   epoch, captured fused (A) against eager (B), A B B A twice with the
-   eager validation pass as the control, at phase 5's shape in fp32 and
-   VIB and at the train CLI's 5880 rows, with each capture's ms and the
-   device memory its graphs' pool reserved.
+   from the host, the FC kernel inside the validation graph).
 
 The counts of both kernels are set to 0 just before phases 3, 4, 5, 7a and
 7b, each run of 8c and 10, 11a's realtime run, 11b's exports, 11c's
@@ -310,8 +299,6 @@ STREAM_RUNS = {
 #: phase 9: the ETL's raw episodes, cut for time to 24 of 6 s (the
 #: reference shards 120 episodes per file), in shards of 12
 ETL_EPISODES, ETL_SECONDS, ETL_PER_SHARD = 24, 6.0, 12
-#: phase 8e: rounds of A B B A, and ticks timed per run
-TICK_AB_ROUNDS, TICK_AB_TICKS = 2, 101
 #: where phases 8 and 9 run; the card
 DEV = "cuda"
 #: phase 7c: the frames unfiltered three ways, side by side
@@ -348,9 +335,7 @@ SERVER_RUNS = {"float32": [],
 #: float64, on the detector's un-floored stats (read 6.9e-4 and 8.0e-4 on
 #: the H100 80GB HBM3 at 700 W)
 F64_NAP_MAX_REL = 2e-3
-SERVER_ROWS = (1, 10, 33, 1000)
-#: 11c: the round trips' rows, captured (B) against eager (A)
-RTT_ROWS = (10, 1024)
+SERVER_ROWS = (1, 10, 33, 1000, 1024)
 #: the server's in-process tolerances (tests/test_score_server.py:60-84)
 SERVER_TOL = {"score_base": 1e-5, "score_sap": 1e-5, "score_nap": 1e-3}
 LEGACY_EPISODES, LEGACY_SECONDS, LEGACY_MIC = 3, 5.0, 8
@@ -2439,99 +2424,9 @@ def tick_breakdown(rt, model, stats, fp, src, x) -> None:
                                          f"{want}")
 
 
-def percentiles_ms(fn, n: int = TICK_AB_TICKS) -> dict:
-    """p50 and p95 of n calls on the host clock, each ending with its
-    scores on the host, after one warm call."""
-    fn()
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return {"p50_ms": float(np.percentile(times, 50)),
-            "p95_ms": float(np.percentile(times, 95))}
-
-
-def tick_ab(rt, model, stats, fp, smi: str) -> dict:
-    """8e: the captured tick against the eager one, and the pipelined run
-    against the sequential one, each alternated A B B A TICK_AB_ROUNDS
-    times in this process, with the bf16 eager NAP tick (the control: no
-    label changes it) timed in every run.  Eager (A) against captured
-    (B): fp32 BASE and NAP ticks on one ring snapshot, p50 / p95 of
-    TICK_AB_TICKS ticks and the busy share under the profiler.  Sequential
-    (A) against pipelined (B): fp32 NAP through `StreamingDetector.run`,
-    TICK_AB_TICKS ticks back to back, its own latency (start to scores on
-    the host) and the loop's ticks per second, simulator included.
-    Returns the summary: per metric, the runs of A and B and
-    mean(B) / mean(A)."""
-    from icra2021_multimodal_ad_tpu_torch.data.streaming import (
-        SimulatedSensors,
-        StreamingDetector,
-    )
-
-    det, control = (StreamingDetector(rt.replace(compute_dtype=name), model,
-                                      fp, nap_stats=stats, device=DEV)
-                    for name in ("float32", "bfloat16"))
-    src = SimulatedSensors(rt.batch_size, seed=31)
-    src.fill(12)
-    snap = (*ring_snapshot(src), src.mic_q.snapshot())
-
-    def control_ms() -> dict:
-        return percentiles_ms(lambda: control.score_rings_eager(
-            *snap, nap=True))
-
-    def tick_run(label: str) -> dict:
-        fn = det.score_rings_eager if label == "A" else det.score_rings
-        row = {}
-        for nap in (False, True):
-            tag = f"fp32_{'nap' if nap else 'base'}"
-            for k, v in percentiles_ms(lambda: fn(*snap, nap=nap)).items():
-                row[f"{tag}_{k}"] = v
-            row[f"{tag}_busy_share"] = profile_calls(
-                lambda: fn(*snap, nap=nap))["device_busy_share"]
-        return row
-
-    def pipeline_run(label: str) -> dict:
-        s = SimulatedSensors(rt.batch_size, seed=32)
-        s.fill(12)
-        t0 = time.perf_counter()
-        det.run(s, n_ticks=TICK_AB_TICKS, nap=True,
-                tick_hook=lambda i: s.tick(), pipelined=label == "B")
-        ticks_per_s = TICK_AB_TICKS / (time.perf_counter() - t0)
-        stats_ = det.latency_stats()
-        return {"fp32_nap_p50_ms": stats_["p50_ms"],
-                "fp32_nap_p95_ms": stats_["p95_ms"],
-                "fp32_nap_ticks_per_s": ticks_per_s}
-
-    summary = {}
-    for what, run in (("eager_vs_captured", tick_run),
-                      ("sequential_vs_pipelined", pipeline_run)):
-        rows = {"A": [], "B": []}
-        for _ in range(TICK_AB_ROUNDS):
-            for label in "ABBA":
-                row = run(label)
-                for k, v in control_ms().items():
-                    row[f"control_bf16_nap_eager_{k}"] = v
-                rows[label].append(row)
-                emit(phase="tick_ab", compare=what, label=label, **row,
-                     card=smi)
-        summary[what] = {}
-        for k in rows["A"][0]:
-            a, b = ([r[k] for r in rows[x]] for x in "AB")
-            summary[what][k] = {"A": a, "B": b}
-            if None not in a + b:
-                summary[what][k]["B_over_A"] = (statistics.mean(b)
-                                                / statistics.mean(a))
-    emit(phase="tick_ab_summary", rounds=TICK_AB_ROUNDS,
-         ticks_per_run=TICK_AB_TICKS, summary=summary, card=smi)
-    return summary
-
-
 def phase_streaming(smi: str, seen: set):
     """Phase 8.  Returns (launches, worst abs err, time rows), by kernel."""
-    from icra2021_multimodal_ad_tpu_torch.models.builder import load_model
     from icra2021_multimodal_ad_tpu_torch.ops.fusion import fusion_init
-    from icra2021_multimodal_ad_tpu_torch.ops.scoring import load_nap_stats
 
     root = os.path.join(RUN_DIR, "realtime")
     shutil.rmtree(root, ignore_errors=True)
@@ -2541,8 +2436,6 @@ def phase_streaming(smi: str, seen: set):
     cfg, _ = streaming_train(root, rt, fp)
     runs = streaming_runs(cfg, smi)
     worst, rows = streaming_kernels(cfg, rt, fp, seen, l2_flush())
-    tick_ab(rt, load_model(cfg.saved_name, device=DEV)[1],
-            load_nap_stats(cfg.train_diffs), fp, smi)
     launches = {k: sum(r[1][k] for r in runs.values())
                 for k in read_counts()}
     emit(phase="streaming", launches=launches, tick_mfcc=mfcc_ms,
@@ -3230,8 +3123,7 @@ def server_kernels_vs_plain(name: str, server, x: np.ndarray, sensor,
 @contextlib.contextmanager
 def eager_server():
     """Inside the block every ScoreServer scores through its eager path
-    (`_score_eager`, `_score_sensor_op_eager`): the A side of 11c's round
-    trips."""
+    (`_score_eager`, `_score_sensor_op_eager`)."""
     from icra2021_multimodal_ad_tpu_torch.ops.score_server import ScoreServer
 
     captured = ScoreServer._score, ScoreServer._score_sensor_op
@@ -3243,36 +3135,11 @@ def eager_server():
         ScoreServer._score, ScoreServer._score_sensor_op = captured
 
 
-def server_round_trips(name: str, client, x: np.ndarray, smi: str) -> dict:
-    """11c: the round trip's p50 of TIMED_RUNS `score_nap` requests at
-    each of RTT_ROWS, eager (A) against captured (B), A B B A on one
-    connection, with the `info` request's round trip (no device work, the
-    same in A and B) as the control.  Returns per metric the runs of A and
-    B and mean(B) / mean(A)."""
-    rows = {"A": [], "B": []}
-    for label in "ABBA":
-        with eager_server() if label == "A" else contextlib.nullcontext():
-            row = {f"score_nap_{b}_p50_ms": percentiles_ms(
-                lambda: client.score(x[:b], op="score_nap"),
-                TIMED_RUNS)["p50_ms"] for b in RTT_ROWS}
-            row["control_info_p50_ms"] = percentiles_ms(
-                client.info, TIMED_RUNS)["p50_ms"]
-        rows[label].append(row)
-        emit(phase="server_round_trip_ab", run=name, label=label, **row,
-             card=smi)
-    summary = {}
-    for k in rows["A"][0]:
-        a, b = ([r[k] for r in rows[side]] for side in "AB")
-        summary[k] = {"A": a, "B": b,
-                      "B_over_A": statistics.mean(b) / statistics.mean(a)}
-    return summary
-
-
 def server_captured_vs_eager(name: str, server, x: np.ndarray, sensor,
                              smi: str) -> None:
-    """11c: every (op, bucket) that the run's requests (SERVER_ROWS and
-    RTT_ROWS), its warm-up (zero probes at buckets 1 and max_batch) and
-    its sensor request reached, through the server's programs against its
+    """11c: every (op, bucket) that the run's requests (SERVER_ROWS), its
+    warm-up (zero probes at buckets 1 and max_batch) and its sensor
+    request reached, through the server's programs against its
     eager path: bit for bit (the zero sensor probes score NaN, compared
     by their bits)."""
     cap = server.max_batch
@@ -3283,8 +3150,7 @@ def server_captured_vs_eager(name: str, server, x: np.ndarray, sensor,
                                                        np.float32))
     cases = {}
     for op in SERVER_TOL:
-        requests = [(f"{n} rows", x[:n])
-                    for n in sorted(set(SERVER_ROWS + RTT_ROWS))]
+        requests = [(f"{n} rows", x[:n]) for n in SERVER_ROWS]
         for label, rows in requests + [("warm-up 1", probe[:1]),
                                        (f"warm-up {cap}", probe)]:
             cases[f"{op} {label}"] = (server._score(op, rows),
@@ -3393,12 +3259,10 @@ def server_on_card(smi: str, det):
     """11c: `serve.main` on loopback in fp32, bf16 behind its guard and
     bf16 + int8 behind its guard: ragged requests of every op against the
     in-process bundle, each kernel against its plain version at the
-    server's padded inputs, the native C++ client, sensor ops, round
-    trips (captured against eager, A B B A); then each run's programs
-    against its eager path, its launches per request under the profiler,
-    capture ms, memory and warm-up seconds.  Returns the path's launches
-    (the eager side of the round trips not counted) and the kernels' worst
-    abs errs."""
+    server's padded inputs, the native C++ client, sensor ops; then each
+    run's programs against its eager path, its launches per request under
+    the profiler, memory and warm-up seconds.  Returns the path's launches
+    and the kernels' worst abs errs."""
     from icra2021_multimodal_ad_tpu_torch import serve
     from icra2021_multimodal_ad_tpu_torch.ops.mlp_kernel import (
         fused_mlp_layer,
@@ -3406,12 +3270,11 @@ def server_on_card(smi: str, det):
     from icra2021_multimodal_ad_tpu_torch.ops.nap_kernel import nap_score
     from icra2021_multimodal_ad_tpu_torch.ops.score_server import ScoreClient
     from icra2021_multimodal_ad_tpu_torch.ops.serving import int8_product
-    from icra2021_multimodal_ad_tpu_torch.utils import graphs
 
     cfg = det[0]
     exe = build_native_client()
     rng = np.random.default_rng(11)
-    x = rng.uniform(0, 1, (max(SERVER_ROWS + RTT_ROWS),
+    x = rng.uniform(0, 1, (max(SERVER_ROWS),
                            cfg.input_size)).astype(np.float32)
     sensor = (rng.integers(0, 256, (10, 3, 32, 32), dtype=np.uint8),
               rng.integers(0, 256, (10, 1, 32, 32), dtype=np.uint8),
@@ -3440,21 +3303,10 @@ def server_on_card(smi: str, det):
                     got_sensor = {op: c.score_sensor(*sensor, op=op) for op in
                                   ("score_base_sensor", "score_sap_sensor",
                                    "score_nap_sensor")}
-                    rtt = {}
-                    for b in RTT_ROWS:
-                        times = []
-                        for _ in range(TIMED_RUNS):
-                            t1 = time.perf_counter()
-                            c.score(x[:b], op="score_nap")
-                            times.append((time.perf_counter() - t1) * 1e3)
-                        rtt[b] = statistics.median(times)
                     native = subprocess.run(
                         [exe, "127.0.0.1", str(port), "score_nap", "33",
                          str(cfg.input_size)], input=x[:33].tobytes(),
                         capture_output=True, timeout=120)
-                    # the eager side's launches are not the path's
-                    rtt_ab, _ = graphs.recorded(
-                        lambda: server_round_trips(name, c, x, smi))
             finally:
                 stop.set()
                 thread.join(timeout=120)
@@ -3462,8 +3314,7 @@ def server_on_card(smi: str, det):
         require(native.returncode == 0, f"{name}: native client "
                                         f"{native.stderr[-500:]}")
         runs[name] = dict(server=box["server"], info=info, got=got,
-                          got_sensor=got_sensor, rtt=rtt, rtt_ab=rtt_ab,
-                          up_s=up_s,
+                          got_sensor=got_sensor, up_s=up_s,
                           native=np.frombuffer(native.stdout, "<f4"),
                           log=log.getvalue())
     launches = read_counts()
@@ -3496,10 +3347,8 @@ def server_on_card(smi: str, det):
         server = r["server"]
         server_captured_vs_eager(name, server, x, sensor, smi)
         server_launches(name, server, x, sensor, smi)
-        capture_ms = {f"{op} {inputs[0][0]}": sec * 1e3 for (op, inputs), sec
-                      in server.programs.capture_s.items()}
-        emit(phase="server_programs", run=name, capture_ms=capture_ms,
-             startup_s=r["up_s"], **server_programs_held(server), card=smi)
+        emit(phase="server_programs", run=name, startup_s=r["up_s"],
+             **server_programs_held(server), card=smi)
         emit(phase="score_server", run=name, flags=SERVER_RUNS[name],
              info={k: r["info"][k] for k in ("compute_dtype", "nap_quant",
                                              "guard_rel_err", "max_batch")},
@@ -3508,7 +3357,6 @@ def server_on_card(smi: str, det):
              sensor_max_rel=sensor_rel,
              native_equal=bool(np.array_equal(r["native"],
                                               r["got"][("score_nap", 33)])),
-             round_trip_p50_ms=r["rtt"], round_trip_ab=r["rtt_ab"],
              guard_line=guard and guard.group(0),
              card=smi)
         for key, v in rel.items():
@@ -3828,12 +3676,10 @@ SHARDED_EPOCHS = 2
 #: the wait for all of phase 12's groups together
 SHARDED_WAIT_S = 420
 #: the meshed epoch programs, on each rank of a capturable mesh: the
-#: variants, each run's epochs (the eager first, then a replay of each
-#: staging slot), and the epochs of the single-device control replayed
-#: after each A and B run of the A B B A
+#: variants, and each run's epochs (the eager first, then a replay of each
+#: staging slot)
 MESHED_PROGRAM_RUNS = {"float32": {}, "vib_k2": VARIANT_RUNS["vib_k2"]}
 MESHED_EPOCHS = 3
-CONTROL_EPOCHS = 3
 #: sharded against single scores on the same weights: JAX's own tolerance
 #: for its mesh (tests/test_end_to_end.py:133-169)
 SHARDED_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -4063,8 +3909,8 @@ def meshed_programs(mesh, x: torch.Tensor, xv: torch.Tensor,
     quotients), with the FC kernel's launches by count; the FC kernel
     against its plain version on the validation program's shard.  Then
     the profile (`trainer_profile`: 2 graph launches an epoch, none from
-    the host) and the A B B A (`meshed_epoch_ab`).  Returns the program
-    runs' launches and the FC kernel's worst abs err."""
+    the host).  Returns the program runs' launches and the FC kernel's
+    worst abs err."""
     from icra2021_multimodal_ad_tpu_torch.parallel.mesh import (
         pad_to_multiple,
         shard_batch,
@@ -4137,56 +3983,7 @@ def meshed_programs(mesh, x: torch.Tensor, xv: torch.Tensor,
     require({k for k, _ in seen} == {"fused_mlp"},
             f"sharded programs {tag}: checked {sorted(seen)}")
     trainer_profile(mesh=mesh, windows=(x, xv))
-    meshed_epoch_ab(mesh, x, xv)
     return {"launches": launches, "mlp_err": worst}
-
-
-def meshed_epoch_ab(mesh, x: torch.Tensor, xv: torch.Tensor) -> dict:
-    """ms per epoch on `mesh` at phase 5's shape in fp32, captured fused
-    loop (A) against the meshed eager loop (B), A B B A EPOCH_AB_ROUNDS
-    times; after every run, CONTROL_EPOCHS replays of one single-device
-    captured fused trainer, which issues no collective: the control, and
-    the measure of what the mesh adds to a captured epoch."""
-    cfg = canonical_config()
-    order = "ABBA" * EPOCH_AB_ROUNDS
-    control, _, _ = captured_trainer(cfg, x, xv,
-                                     2 + len(order) * CONTROL_EPOCHS)
-    replay_epochs(control, 1, 2)  # its first replay, untimed
-    epoch = 2
-    runs = {"A": [], "B": []}
-    controls = {"A": [], "B": []}
-    for side in order:
-        if side == "A":
-            progs, capture_ms, held = captured_trainer(
-                cfg, x, xv, 2 + EPOCH_AB_EPOCHS, mesh)
-            replay_epochs(progs, 1, 2)  # the first replays, untimed
-            got = replay_epochs(progs, 2, 2 + EPOCH_AB_EPOCHS)
-            got.update(capture_ms=capture_ms, graphs_mib=held)
-            del progs
-        else:
-            got = {"epoch_ms": eager_epochs(cfg, x, xv, mesh)}
-        runs[side].append(got)
-        controls[side].append(replay_epochs(
-            control, epoch, epoch + CONTROL_EPOCHS)["epoch_ms"])
-        epoch += CONTROL_EPOCHS
-        gc.collect()
-        torch.cuda.empty_cache()
-    mean = {k: statistics.mean(r["epoch_ms"] for r in v)
-            for k, v in runs.items()}
-    cmean = {k: statistics.mean(v) for k, v in controls.items()}
-    row = dict(phase="sharded_epoch_ab",
-               mesh=[mesh.backend, mesh.world_size, mesh.rank,
-                     str(mesh.device)],
-               train_rows=int(x.shape[0]), valid_rows=int(xv.shape[0]),
-               batch_size=cfg.batch_size, order=order, captured=runs["A"],
-               eager_epoch_ms=[r["epoch_ms"] for r in runs["B"]],
-               control_single_captured_epoch_ms=controls,
-               captured_over_eager=mean["A"] / mean["B"],
-               captured_over_single_captured=mean["A"] / statistics.mean(
-                   controls["A"] + controls["B"]),
-               control_a_over_b=cmean["A"] / cmean["B"])
-    emit(**row)
-    return row
 
 
 @torch.enable_grad()
@@ -4396,13 +4193,6 @@ def phase_sharded(smi: str):
 #: Gram fit, which trains as fp32 does)
 PROGRAM_RUNS = {"float32": {}, **{k: v for k, v in VARIANT_RUNS.items()
                                   if k != "gram_fit"}}
-#: the captured (A) against the eager (B) loop: epochs timed per run after
-#: one untimed epoch, rounds of A B B A, and the (variant, train rows, valid
-#: rows) of each case: phase 5's shape and the train CLI's
-EPOCH_AB_EPOCHS, EPOCH_AB_ROUNDS = 6, 2
-EPOCH_AB_CASES = (("float32", TRAIN_ROWS, VALID_ROWS),
-                  ("vib_k2", TRAIN_ROWS, VALID_ROWS),
-                  ("float32", CLI_SPLIT["train"], CLI_SPLIT["valid"]))
 #: the fused mode's histories against the per-epoch mode's (JAX's,
 #: tests/test_end_to_end.py:112-119)
 MODES_RTOL = 1e-5
@@ -4533,76 +4323,6 @@ def replay_epochs(progs, first: int, last: int) -> dict:
             **{f"host_{k}_ms": v * 1e3 / n for k, v in spent.items()}}
 
 
-def eager_epochs(cfg, x, xv, mesh=None) -> float:
-    """ms per epoch of the eager loop (`train_all_epochs_eager`, its two
-    syncs an epoch), on `mesh` if given, over EPOCH_AB_EPOCHS epochs after
-    an untimed one."""
-    from icra2021_multimodal_ad_tpu_torch.models.builder import get_model
-    from icra2021_multimodal_ad_tpu_torch.train import (
-        make_optimizer,
-        train_all_epochs_eager,
-    )
-
-    model = get_model(cfg)
-    opt = make_optimizer(model, cfg.lr)
-    args = (model, opt, x, xv, cfg.seed, cfg.batch_size)
-    train_all_epochs_eager(*args, 1, mesh=mesh)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    train_all_epochs_eager(*args, 1 + EPOCH_AB_EPOCHS, start_epoch=1,
-                           mesh=mesh)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / EPOCH_AB_EPOCHS
-
-
-def epoch_ab(smi: str) -> list:
-    """ms per epoch, captured fused loop (A) against the eager loop (B), A
-    B B A EPOCH_AB_ROUNDS times in each EPOCH_AB_CASES case, with the eager
-    validation pass alone timed in every run as the control; each A run
-    also reports its capture ms and graph memory."""
-    from icra2021_multimodal_ad_tpu_torch.models.builder import get_model
-    from icra2021_multimodal_ad_tpu_torch.train import eval_epoch
-
-    rows = []
-    base = canonical_config()
-    train_x, valid_x, _, _ = phase5_windows(base)
-    for name, n, n_valid in EPOCH_AB_CASES:
-        cfg = base.replace(**PROGRAM_RUNS[name])
-        x, xv = train_x[:n], valid_x[:n_valid]
-        probe = get_model(cfg)  # the control's fixed work
-        runs = {"A": [], "B": []}
-        control = {"A": [], "B": []}
-        for side in "ABBA" * EPOCH_AB_ROUNDS:
-            if side == "A":
-                progs, capture_ms, held = captured_trainer(
-                    cfg, x, xv, 2 + EPOCH_AB_EPOCHS)
-                replay_epochs(progs, 1, 2)  # the first replays, untimed
-                got = replay_epochs(progs, 2, 2 + EPOCH_AB_EPOCHS)
-                got.update(capture_ms=capture_ms, graphs_mib=held)
-                del progs
-            else:
-                got = {"epoch_ms": eager_epochs(cfg, x, xv)}
-            runs[side].append(got)
-            control[side].append(wall_ms(lambda: eval_epoch(
-                probe, xv, cfg.batch_size)))
-            gc.collect()
-            torch.cuda.empty_cache()
-        mean = {k: statistics.mean(r["epoch_ms"] for r in v)
-                for k, v in runs.items()}
-        cmean = {k: statistics.mean(v) for k, v in control.items()}
-        row = dict(phase="trainer_epoch_ab", variant=name, train_rows=n,
-                   valid_rows=n_valid, batch_size=cfg.batch_size,
-                   order="ABBA" * EPOCH_AB_ROUNDS,
-                   captured=runs["A"], eager_epoch_ms=[
-                       r["epoch_ms"] for r in runs["B"]],
-                   control_valid_pass_ms=control,
-                   captured_over_eager=mean["A"] / mean["B"],
-                   control_a_over_b=cmean["A"] / cmean["B"], card=smi)
-        emit(**row)
-        rows.append(row)
-    return rows
-
-
 def trainer_profile(smi: str = "", mesh=None, windows=None) -> dict:
     """Captured fused epochs and eager epochs under torch.profiler
     (`profile_calls`, one epoch a call) at phase 5's shape in fp32 (on
@@ -4691,8 +4411,8 @@ def phase_trainer_programs(smi: str, seen: set):
     quotients; fused and per-epoch histories within MODES_RTOL; the resume
     the per-epoch run's histories and weights; the FC kernel against its
     plain version on the validation pass's inputs.  Then the profile
-    (`trainer_profile`) and the A B B A (`epoch_ab`).  Returns (launches
-    of the program runs, worst abs err of the FC kernel)."""
+    (`trainer_profile`).  Returns (launches of the program runs, worst abs
+    err of the FC kernel)."""
     from icra2021_multimodal_ad_tpu_torch.models.builder import get_model
     from icra2021_multimodal_ad_tpu_torch.train import (
         NoveltyDetecter,
@@ -4779,7 +4499,6 @@ def phase_trainer_programs(smi: str, seen: set):
         gc.collect()
         torch.cuda.empty_cache()
     trainer_profile(smi)
-    epoch_ab(smi)
     return launches, worst
 
 

@@ -179,8 +179,8 @@ def _load_images(root: str, data_dirs, ids, subdir: str) -> np.ndarray:
     frames of other sizes; each distinct path (a slower camera repeats its
     frame across 10 Hz windows) is decoded once, all of them in one batch.
     The files are read serially: a thread pool measured slower on both the
-    test host and the card's (scripts/torch_png_probe.py), whose file opens
-    serialize."""
+    test host and the card's, whose file opens serialize (CHANGES.md, the
+    frontend's entry: ~216 us an open and read, ~17 us a decode)."""
     paths = image_paths(root, data_dirs, ids, subdir)
     unique = list(dict.fromkeys(paths))
     decoded = dict(zip(unique, png.decode_resized_batch(unique, (32, 24))))

@@ -71,8 +71,9 @@ SMALL_VARIANT = 4
 #: scripts/torch_kernel_variants.py)
 WIDE_MIN_B = 4096
 #: the largest batch an fp32 module runs in one launch (variant 4): it
-#: measured faster than variant 0 at every B <= 32 on the H100 and not at
-#: B = 64 (PERF.md §6, scripts/torch_kernel_ab.py)
+#: measured faster than variant 0 at every B <= 32 on the H100, the
+#: encoder's also at B = 33 and 64 (PERF.md §6); the limit rises only once
+#: chip_smoke.py phase 2b shows the module faster at every B up to it
 SMALL_MAX_B = 32
 #: the most rows and layers one module launch takes (FM_MAX_B and
 #: FM_MAX_LAYERS in the source)

@@ -48,7 +48,6 @@ import copy
 import functools
 import io
 import os
-import time
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -350,8 +349,6 @@ class ServingPrograms:
                 "one: score it through the ServingModel's own methods")
         self.serving = serving
         self.programs: Dict[tuple, graphs.Program] = {}
-        #: host seconds each program took to warm up and capture, by key
-        self.capture_s: Dict[tuple, float] = {}
         self._pool = (torch.cuda.graph_pool_handle()
                       if serving.device.type == "cuda" else None)
 
@@ -365,10 +362,8 @@ class ServingPrograms:
         key = (op, inputs)
         if key not in self.programs:
             fn = functools.partial(SERVED_OPS[op][0], self.serving)
-            t0 = time.perf_counter()
             self.programs[key] = graphs.Program(
                 fn, inputs, self.serving.device, pool=self._pool)
-            self.capture_s[key] = time.perf_counter() - t0
         return self.programs[key]
 
     def score(self, op: str, bucket: int, *payloads: np.ndarray) -> np.ndarray:
