@@ -54,39 +54,48 @@
 //     result is deterministic, with no atomics.
 //
 // Variant 4, fp32 at small batches (B <= SMALL_MAX_B), one cooperative
-// launch in place of the three launches above, bit-equal to variant 0:
-//   * A work unit is a 32-column tile of J and a slice of K's 32-deep
-//     stages.  Where J has tiles for half the grid (J >= ~2100 on 132
-//     SMs) one slice covers K; else K splits into as many slices as fill
-//     the grid (J = 400: 13 tiles x 10 slices of 18 stages).
-//   * First the grid centres x once, xc = x - mu (the one __fsub_rn of
-//     nap_center_kernel), into 16-byte aligned rows of the scratch, and
-//     syncs.  A producer warp per block meanwhile has the first chunk's
-//     V^T rows in flight; it fills a ring of chunks (ch stages each) by
-//     bulk copies (cp.async.bulk) of the tile's V^T rows and the B centred
-//     rows, on full/empty mbarriers, and never waits on the consumers'
-//     work, only on a free slot.
-//   * Eight consumer warps take work items of RT rows x 4 columns x one
-//     stage, each output an fmaf chain of 32 in k order, and store the
-//     stage totals in shared memory; each output's owner adds a chunk's
-//     totals in stage order to its running total (one slice), or stores
-//     them to the scratch (split K), and after a grid sync a warp per
-//     (row, tile) adds all of K's totals from stage 0 in order.
+// launch in place of the three launches above, bit-equal to variant 0, in
+// one of two schedules picked from (B, J) and the SMs (ns_even):
+//   * The even schedule (nap_small_kernel_even), at B <= 16 where J has
+//     32-column tiles for half the grid or more (J >= ~2100 on 132 SMs):
+//     block g holds the contiguous columns [g J / 132, (g + 1) J / 132)
+//     (41 or 42 at J = 5482, where whole tiles gave 40 of 132 blocks a
+//     second 701 KB tile while 92 idled) and streams their V^T rows over
+//     all of K, one round.  A producer warp fills a ring of two chunks (8
+//     stages of 32) by tensor copies, a stage's box of the block's V^T rows
+//     in the 128-byte swizzle; the consumers centre the chunk's columns of
+//     x themselves (loaded a chunk ahead), so no grid sync precedes the
+//     stream.  Eight consumer warps take items of R rows x 8 C columns x
+//     one stage (R = 5, C = 6 at B = 10: 30 outputs a lane for 11 float4
+//     reads a 4-deep step, where whole tiles read 12 a 128 FMAs), each
+//     output an fmaf chain of 32 in k order from 0, and store the stage
+//     totals in shared memory; after the consumers' barrier each output's
+//     owner adds the chunk's in stage order to a running total it keeps in
+//     a register, and after the block's last chunk stores its t.
+//   * The tile kernel (nap_small_kernel) elsewhere: a work unit is a
+//     32-column tile and a slice of K's stages.  Where J has tiles for half
+//     the grid one slice covers K; else K splits into as many slices as
+//     fill the grid (J = 400: 13 tiles x 10 slices of 18 stages), the
+//     stage totals go to the scratch, and after a grid sync a warp per
+//     (row, tile) adds all of K's from stage 0 in order.  First the grid
+//     centres x once into the scratch and syncs; eight consumer warps take
+//     items of RT rows x 4 columns x one stage from a ring that a producer
+//     warp fills by bulk copies.
 //   * The row sums keep variant 0's order: the tile's t^2 with nap_term's
 //     arithmetic (lane tx adds columns tx + 8 q in q order, then the xor
 //     butterfly over 8 lanes), a grid sync, then one thread per row adds
 //     the tile partials in tile order and divides by J.  No atomics, so
 //     the scores are bit-equal to variant 0, floored columns included.
-//   * What bounds it on the H100 (scripts/torch_small_kernel_probe.py,
-//     PERF.md §5-6): the design before it chained all of K per output
-//     (~11 us of dependent FMAs at K = 5482) through 43 stages of 1.1-3.3
-//     us.  Now, device ms at B = 1 / 10 / 32: J = 400 0.020 / 0.023 /
-//     0.032 (was 0.054 / 0.061 / 0.085; bytes bound 0.0027), where the
-//     first chunk (5-8 us, the centring sync included) and the fold after
-//     its own sync set most of it; J = 4096 0.058-0.061 / 0.069 / 0.105
-//     (bound 0.027), 22 chunks of 1.9-4.0 us, at B = 32 the items'
-//     shared-memory reads (12 float4 a 128 FMAs) holding the SM near 44 %
-//     of its FMAs (8-column items were slower).
+//   * Device ms at B = 1 / 10 / 32 (K = 5482, the L2 flushed by a 128 MB
+//     write before each call; PERF.md §6): J = 400 0.020 / 0.023 / 0.032
+//     (the tile kernel; bytes bound 0.0027); J = 4096 0.049 / 0.058 /
+//     0.105 (bound 0.027; whole tiles 0.059 / 0.069 / 0.106); J = 5482
+//     0.060 / 0.065 / 0.195 (bound 0.036; whole tiles 0.095 / 0.126 /
+//     0.195).  Under that flush the even schedule streams V^T about as
+//     fast as plain loads of the same rows do (~2.2 TB/s; 2.4 us a chunk
+//     at B = 10); in the robot's traced tick it takes 0.053 ms.  At B = 32
+//     its items' shared-memory reads outlast the bytes (J = 4096: 0.125
+//     ms), hence the tile kernel past B = 16.
 //   * The grid is what the occupancy query allows at the kernel's shared
 //     memory (cudaLaunchCooperativeKernel guarantees co-residency); a
 //     refused launch returns its error, there is no fallback.
@@ -96,8 +105,9 @@
 //   * B = 4096, K = 5482, J = 4096: 2*B*K*J = 184 GFLOP, compute-bound at
 //     ~2.7 ms in fp32 and ~0.19 ms in bf16 (the hi/lo split doubles the
 //     tensor-core work, ~0.37 ms).
-//   * B = 10: reading V (90 MB fp32, 45 MB bf16) dominates, memory-bound at
-//     ~27 us and ~13 us.
+//   * B = 10: reading V dominates, memory-bound: at J = 4096 90 MB fp32
+//     (45 MB bf16), ~27 us (~13 us); at the robot's tick, K = J = 5482,
+//     120.2 MB fp32, past the 50 MB L2, ~36 us (60.1 MB bf16, ~18 us).
 
 #include <cooperative_groups.h>
 
@@ -605,11 +615,352 @@ nap_small_kernel(const NapSmall p) {
   PROBE_MARK(5, 0);
 }
 
-// The launch shape of variant 4 at (B, K, J) on device d: the chunk depth
-// (enough work items for the consumer threads), the ring that fits beside
-// it, the grid the occupancy query allows, and the K split: one slice
-// where there are tiles for half the grid, else as many slices as fill
-// it.  Also the scratch it needs, in floats.
+// ---------------------------------------------------------------------------
+// variant 4 where J has tiles for half the grid: the even schedule
+// ---------------------------------------------------------------------------
+
+constexpr int NE_CONSUMERS = 256;  // eight consumer warps, two a scheduler
+constexpr int NE_BLOCK = NE_CONSUMERS + 32;  // and one producer warp
+constexpr int NE_LANES = 8;   // a consumer's column lane is lane % 8
+constexpr int NE_SUBS = NE_CONSUMERS / NE_LANES;  // work items at a time
+constexpr int NE_S = 8;       // 32-deep stages per chunk
+constexpr int NE_KC = 32 * NE_S;  // a chunk's columns of K
+constexpr int NE_RING = 2;    // chunks in flight (more stream no faster)
+// The most rows the even schedule takes: past them its items' shared
+// memory reads outlast the bytes, and the tile kernel is faster (B = 32,
+// J = 4096: 0.125 against 0.105 ms; PERF.md).
+constexpr int NE_MAX_B = 16;
+
+struct NapEven {
+  const float* x;
+  const float* mu;
+  const float* std_mu;
+  const float* inv_std;
+  float* tv;   // (B, ldt) t = (rot - std_mu) * inv_std of every output
+  float* out;  // (B,)
+  int ldx, ldt, B, K, J;
+  int groups;  // block g holds columns [g J / groups, (g + 1) J / groups)
+  int rows;    // V^T rows a stage's box: the widest pass's columns
+};
+
+// A chunk's slot: for each of its stages the pass's V^T rows, 8 C rows of
+// 128 bytes in the tensor copy's 128-byte swizzle (C KB, 1024-byte
+// aligned); then the B centred rows over the chunk's columns of K.
+__host__ __device__ constexpr int ne_slot_bytes(int B, int C) {
+  return NE_S * C * 1024 + (B * NE_KC * 4 + 1023) / 1024 * 1024;
+}
+// a chunk's stage totals, (NE_S, B, 8 C) floats with the stages 8 floats
+// apart beyond the rows, so that a warp's four items store to different
+// banks
+__host__ __device__ constexpr int ne_fold_stride(int B, int C) {
+  return B * NE_LANES * C + 8;
+}
+// the alignment's slack, the slots, two chunks' stage totals and two
+// mbarriers a slot (V^T rows in, slot free)
+__host__ __device__ constexpr int ne_smem_bytes(int B, int C) {
+  return 1024 + NE_RING * ne_slot_bytes(B, C) +
+         2 * NE_S * ne_fold_stride(B, C) * 4 + 2 * NE_RING * 8;
+}
+// the tiles: C columns a lane (8 C a pass) by R rows an item, two items a
+// stage where B allows; an R-row kernel takes up to ne_max_b(R) rows
+constexpr int ne_c(int w) { return w <= 32 ? 4 : 6; }
+constexpr int ne_r(int B) {
+  return B <= 1 ? 1 : B <= 4 ? 2 : B <= 8 ? 4 : B <= 10 ? 5 : 8;
+}
+__host__ __device__ constexpr int ne_max_b(int R) {
+  return R == 1 ? 1 : 2 * R;
+}
+
+// the consumer warps' barrier (the producer warp runs on its own)
+__device__ __forceinline__ void ne_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NE_CONSUMERS) : "memory");
+}
+
+// A block holds the contiguous columns [c0, c1) of J, the J / groups
+// columns of the even partition (their counts differ by one at most), and
+// streams their V^T rows over all of K in passes of 8 C columns, a chunk
+// of NE_S stages at a time.  The consumers centre each chunk's columns of
+// x themselves, x - mu (the one __fsub_rn of nap_center_kernel), loaded a
+// chunk ahead.  A chunk's work item (q, rg) is its stage q for rows rg R +
+// r (r < R); lane cl of the item's eight takes columns cl + 8 i (i < C),
+// each output an fmaf chain of 32 in k order from 0, and stores its stage
+// totals in shared memory.  After the consumers' barrier each output's
+// owner adds the chunk's totals in stage order to the running total it
+// keeps in a register, and after a pass's last chunk stores the output's
+// t.  Warps 0-7 consume the ring, warp 8 fills it by tensor copies.
+template <int R, int C>
+__global__ void __launch_bounds__(NE_BLOCK, 1)
+nap_small_kernel_even(const NapEven p,
+                      const __grid_constant__ CUtensorMap map_v) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzled boxes 1024-byte aligned
+  unsigned char* const smem =
+      smem_raw + (1024 - sm90::smem_u32(smem_raw) % 1024) % 1024;
+  PROBE_DECL;
+  PROBE_MARK(1, 0);
+  constexpr int W = NE_LANES * C;  // columns a pass
+  constexpr int MB = ne_max_b(R);
+  // the outputs a consumer owns, at most, and the columns of K it centres
+  // a chunk
+  constexpr int OWN = (MB * W + NE_CONSUMERS - 1) / NE_CONSUMERS;
+  constexpr int KJ = NE_KC / NE_CONSUMERS;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int B = p.B, ring = NE_RING;
+  const int slot = ne_slot_bytes(B, C), fs = ne_fold_stride(B, C);
+  float* const fold = reinterpret_cast<float*>(smem + ring * slot);
+  // full[s]: slot s's V^T rows landed; empty[s]: the consumers are done
+  // with them
+  uint64_t* const full = reinterpret_cast<uint64_t*>(fold + 2 * NE_S * fs);
+  uint64_t* const empty = full + ring;
+  const int nk = (p.K + 31) / 32;
+  const int n_tiles = (p.J + NS_TILE - 1) / NS_TILE;
+  const int blocks = gridDim.x, block = blockIdx.x;
+  const int c0 = static_cast<int>(static_cast<long long>(block) * p.J /
+                                  p.groups);
+  const int c1 = static_cast<int>(static_cast<long long>(block + 1) * p.J /
+                                  p.groups);
+  const int cpp = (nk + NE_S - 1) / NE_S;  // chunks a pass
+  const int total = (c1 - c0 + W - 1) / W * cpp;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if (tid == 0) {
+    for (int i = 0; i < ring; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], NE_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // iteration it: chunk it % cpp of pass it / cpp
+  auto stage0 = [&](int it) { return (it % cpp) * NE_S; };
+  auto n_stages = [&](int it) { return min(NE_S, nk - stage0(it)); };
+  auto col0 = [&](int it) { return c0 + (it / cpp) * W; };
+
+  if (warp == NE_CONSUMERS / 32) {
+    // The producer: each chunk's V^T rows into its slot once the consumers
+    // have freed it, by tensor copies, a box of 32 columns of K by `rows`
+    // V^T rows a stage (reads past K or J fill zeros).
+    for (int it = 0; it < total; ++it) {
+      const int s = it % ring;
+      if (it >= ring) sm90::mbar_wait(&empty[s], (it / ring - 1) & 1);
+      if (lane == 0) {
+        const int n = n_stages(it);
+        sm90::mbar_expect_tx(&full[s], n * p.rows * 128);
+        for (int q = 0; q < n; ++q)
+          sm90::tma_load(smem + s * slot + q * C * 1024, &map_v, &full[s],
+                         32 * (stage0(it) + q), col0(it));
+      }
+    }
+  } else {
+    const int cl = lane % NE_LANES, sub = tid / NE_LANES;
+    const int nr = (B + R - 1) / R, outs = B * W;
+    // x and mu at the chunk's columns tid + 256 j of K (zeros past K), and
+    // x - mu into the slot's rows
+    float xr[MB][KJ], mr[KJ];
+    auto fetch_x = [&](int it) {
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const int k = 32 * stage0(it) + tid + NE_CONSUMERS * j;
+        mr[j] = k < p.K ? __ldg(p.mu + k) : 0.f;
+#pragma unroll
+        for (int b = 0; b < MB; ++b)
+          xr[b][j] = b < B && k < p.K
+                         ? p.x[static_cast<size_t>(b) * p.ldx + k]
+                         : 0.f;
+      }
+    };
+    auto store_x = [&](int it) {
+      float* const xs = reinterpret_cast<float*>(
+          smem + (it % ring) * slot + NE_S * C * 1024);
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+#pragma unroll
+        for (int b = 0; b < MB; ++b)
+          if (b < B)
+            xs[b * NE_KC + tid + NE_CONSUMERS * j] =
+                __fsub_rn(xr[b][j], mr[j]);
+    };
+    // the running totals of outputs tid + 256 m, (row o / W, column o % W
+    // of the pass)
+    float tot[OWN];
+#pragma unroll
+    for (int m = 0; m < OWN; ++m) tot[m] = 0.f;
+    if (total > 0) {
+      fetch_x(0);
+      store_x(0);
+    }
+    ne_consumers_sync();
+    for (int it = 0; it < total; ++it) {
+      const int s_ = it % ring;
+      // the next chunk's x in flight while this one computes
+      const bool next = it + 1 < total;
+      if (next) fetch_x(it + 1);
+      sm90::mbar_wait(&full[s_], (it / ring) & 1);
+      PROBE_MARK(2, it);
+      const unsigned char* const vs = smem + s_ * slot;
+      const float* const xs =
+          reinterpret_cast<const float*>(vs + NE_S * C * 1024);
+      float* const fb = fold + (it % 2) * NE_S * fs;
+      const int n_st = n_stages(it);
+      for (int u = sub; u < n_st * nr; u += NE_SUBS) {
+        const int q = u % n_st, rg = u / n_st;
+        // row cl + 8 i of the stage's box is 128 (cl + 8 i) bytes in; its
+        // float4 f lies at (f ^ cl) in the swizzle
+        const unsigned char* const vq = vs + q * C * 1024 + cl * 128;
+        // the item's x rows (rows past B read row B - 1 and are never
+        // stored)
+        int xo[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          xo[r] = min(rg * R + r, B - 1) * NE_KC + 32 * q;
+        float acc[R][C];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int i = 0; i < C; ++i) acc[r][i] = 0.f;
+#pragma unroll
+        for (int f = 0; f < 8; ++f) {
+          const int sw = (f ^ cl) * 16;
+          float4 v[C], a[R];
+#pragma unroll
+          for (int i = 0; i < C; ++i)
+            v[i] = *reinterpret_cast<const float4*>(vq + i * 1024 + sw);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            a[r] = *reinterpret_cast<const float4*>(xs + xo[r] + 4 * f);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int i = 0; i < C; ++i) {
+              acc[r][i] = fmaf(a[r].x, v[i].x, acc[r][i]);
+              acc[r][i] = fmaf(a[r].y, v[i].y, acc[r][i]);
+              acc[r][i] = fmaf(a[r].z, v[i].z, acc[r][i]);
+              acc[r][i] = fmaf(a[r].w, v[i].w, acc[r][i]);
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int b = rg * R + r;
+          if (b < B) {
+#pragma unroll
+            for (int i = 0; i < C; ++i)
+              fb[q * fs + b * W + cl + NE_LANES * i] = acc[r][i];
+          }
+        }
+      }
+      PROBE_MARK(6, it);
+      // the slot's V^T rows are read: the producer may refill them
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s_]);
+      // the next chunk's x into its slot, whose x rows the chunk a ring
+      // before read
+      if (next) store_x(it + 1);
+      ne_consumers_sync();
+      // each output's owner adds the chunk's stage totals in stage order
+      // (the other half of the buffer takes the next chunk's); after the
+      // pass's last chunk it stores the output's t
+      const int cols = min(W, c1 - col0(it));
+      const bool last = it % cpp == cpp - 1;
+#pragma unroll
+      for (int m = 0; m < OWN; ++m) {
+        const int o = tid + NE_CONSUMERS * m;
+        if (o < outs) {
+          float v[NE_S];
+#pragma unroll
+          for (int q = 0; q < NE_S; ++q)
+            v[q] = q < n_st ? fb[q * fs + o] : 0.f;
+#pragma unroll
+          for (int q = 0; q < NE_S; ++q)
+            if (q < n_st) tot[m] = __fadd_rn(tot[m], v[q]);
+          if (last) {
+            const int n = o % W, j = col0(it) + n;
+            if (n < cols)
+              p.tv[static_cast<size_t>(o / W) * p.ldt + j] =
+                  __fmul_rn(__fsub_rn(tot[m], __ldg(p.std_mu + j)),
+                            __ldg(p.inv_std + j));
+            tot[m] = 0.f;
+          }
+        }
+      }
+      PROBE_MARK(7, it);
+    }
+  }
+  PROBE_MARK(3, 1);
+  grid.sync();
+  PROBE_MARK(4, 1);
+  // A block a row: thread i takes the tiles i + 160 u, each tile's sum of
+  // t^2 in variant 0's order (column lane tx's chain over tx + 8 q in q
+  // order, then the xor butterfly's adds, ((0 + 1) + (2 + 3)) + ((4 + 5) +
+  // (6 + 7))) into shared memory; then one thread adds the tile partials
+  // in tile order and divides by J.
+  float* const part = reinterpret_cast<float*>(smem);
+  for (int b = block; b < B; b += blocks) {
+    const float* tv = p.tv + static_cast<size_t>(b) * p.ldt;
+    for (int t = tid; t < n_tiles; t += NE_BLOCK) {
+      // the tile's t, 16-byte rows (what lies past J is never used)
+      float4 v[NS_TILE / 4];
+#pragma unroll
+      for (int n = 0; n < NS_TILE / 4; ++n)
+        v[n] = NS_TILE * t + 4 * n < p.J
+                   ? __ldcg(reinterpret_cast<const float4*>(
+                         tv + NS_TILE * t + 4 * n))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float* tt = reinterpret_cast<const float*>(v);
+      float s[8];
+#pragma unroll
+      for (int tx = 0; tx < 8; ++tx) {
+        s[tx] = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (NS_TILE * t + tx + 8 * q < p.J)
+            s[tx] = fmaf(tt[tx + 8 * q], tt[tx + 8 * q], s[tx]);
+      }
+      part[t] = __fadd_rn(
+          __fadd_rn(__fadd_rn(s[0], s[1]), __fadd_rn(s[2], s[3])),
+          __fadd_rn(__fadd_rn(s[4], s[5]), __fadd_rn(s[6], s[7])));
+    }
+    PROBE_MARK(8, b);
+    __syncthreads();
+    if (tid == 0) {
+      // in tile order, the next 8 partials' loads in flight during the
+      // adds of these 8
+      float s = 0.f, v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = u < n_tiles ? part[u] : 0.f;
+      for (int t = 0; t < n_tiles; t += 8) {
+        float nv[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          nv[u] = t + 8 + u < n_tiles ? part[t + 8 + u] : 0.f;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (t + u < n_tiles) s = __fadd_rn(s, v[u]);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = nv[u];
+      }
+      p.out[b] = __fdiv_rn(s, static_cast<float>(p.J));
+    }
+    PROBE_MARK(10, b);
+    __syncthreads();
+  }
+  PROBE_MARK(5, 0);
+}
+
+// The launch shape of variant 4: its grid and dynamic shared memory, the
+// scratch it needs in floats, and its partition's balance, the busiest
+// block's columns x stages of V^T over the mean block's.
+struct SmallShape {
+  int grid = 0, smem = 0;
+  long long scratch = 0;
+  double balance = 0;
+};
+
+// Whether variant 4 takes the even schedule at (B, J) on `sms` SMs: at B <=
+// NE_MAX_B where J's 32-column tiles number half the grid or more, so that
+// one K slice keeps every SM streaming; else the tile kernel.
+bool ns_even(int B, int J, int sms) {
+  return B <= NE_MAX_B && 2 * ((J + NS_TILE - 1) / NS_TILE) >= sms;
+}
+
 // The chunk depth and ring at B rows in `floats` of shared memory: the
 // stages whose items fill the consumers once, then the deepest multiple of
 // them (NS_MAX_CH at most) that two slots hold, then as many slots as fit
@@ -626,22 +977,27 @@ void ns_ring(int B, int floats, int* ch, int* ring) {
     ++*ring;
 }
 
+// The tile kernel's launch shape at p's (B, K, J) on device d: the chunk
+// depth (enough work items for the consumer threads), the ring that fits
+// beside it, the grid the occupancy query allows, and the K split: one
+// slice where there are tiles for half the grid, else as many slices as
+// fill it.
 template <int RT>
-cudaError_t small_shape(NapSmall* p, const sm90::DeviceInfo& d, int* grid,
-                        int* smem, long long* scratch) {
+cudaError_t small_shape(NapSmall* p, const sm90::DeviceInfo& d,
+                        SmallShape* shape) {
   const int B = p->B;
   int ch = 0, ring = 0;
   ns_ring(B, d.smem_optin / 4, &ch, &ring);
   if (ring == 0) return cudaErrorInvalidValue;
   p->ch = ch;
   p->ring = ring;
-  *smem = ns_smem_floats(B, ch, ring) * 4;
+  shape->smem = ns_smem_floats(B, ch, ring) * 4;
   static cudaError_t attr =
       sm90::allow_smem(nap_small_kernel<RT>, d.smem_optin);
   if (attr != cudaSuccess) return attr;
   int per_sm = 0;
   cudaError_t err = sm90::resident_blocks(nap_small_kernel<RT>, d.dev,
-                                          NS_BLOCK, *smem, &per_sm);
+                                          NS_BLOCK, shape->smem, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm == 0) return cudaErrorCooperativeLaunchTooLarge;
   const int cap = per_sm * d.sms;
@@ -654,22 +1010,26 @@ cudaError_t small_shape(NapSmall* p, const sm90::DeviceInfo& d, int* grid,
   // the ring's shared memory
   if (p->slices > 1 && ns_smem_floats(B, ch, ring) - 6 * ring < nk * NS_TILE)
     return cudaErrorInvalidValue;
-  *grid = std::min(n_tiles * p->slices, cap);
-  *scratch = static_cast<long long>(B) * ns_ldxc(p->K) +
-             static_cast<long long>(n_tiles) * B +
-             (p->slices > 1 ? static_cast<long long>(nk) * B * n_tiles *
-                                  NS_TILE
-                            : 0);
+  const int units = n_tiles * p->slices;
+  shape->grid = std::min(units, cap);
+  shape->scratch = static_cast<long long>(B) * ns_ldxc(p->K) +
+                   static_cast<long long>(n_tiles) * B +
+                   (p->slices > 1 ? static_cast<long long>(nk) * B *
+                                        n_tiles * NS_TILE
+                                  : 0);
+  // a block's units, a unit's columns and stages at most
+  shape->balance = static_cast<double>((units + shape->grid - 1) /
+                                       shape->grid) *
+                   std::min(NS_TILE, p->J) * p->slice_stages * shape->grid /
+                   (static_cast<double>(p->J) * nk);
   return cudaSuccess;
 }
 
 template <int RT>
-cudaError_t small_launch(NapSmall p, const sm90::DeviceInfo& d,
-                         cudaStream_t stream) {
-  int grid = 0, smem = 0;
-  long long scratch = 0;
-  cudaError_t err = small_shape<RT>(&p, d, &grid, &smem, &scratch);
-  if (err != cudaSuccess) return err;
+cudaError_t small_launch(NapSmall p, const sm90::DeviceInfo& d, bool launch,
+                         cudaStream_t stream, SmallShape* shape) {
+  cudaError_t err = small_shape<RT>(&p, d, shape);
+  if (err != cudaSuccess || !launch) return err;
   // the centred rows first, at the scratch's (16-byte aligned) start, then
   // the stage totals, then the partials
   p.ldxc = ns_ldxc(p.K);
@@ -681,44 +1041,114 @@ cudaError_t small_launch(NapSmall p, const sm90::DeviceInfo& d,
                                    : 0);
   void* args[] = {&p};
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(nap_small_kernel<RT>), dim3(grid),
-      dim3(NS_BLOCK), args, static_cast<size_t>(smem), stream);
+      reinterpret_cast<const void*>(nap_small_kernel<RT>), dim3(shape->grid),
+      dim3(NS_BLOCK), args, static_cast<size_t>(shape->smem), stream);
 }
 
-// The scratch, in floats, that variant 4 needs at (B, K, J) on the current
-// device; -1 for arguments it does not take.
-long long small_scratch(int B, int K, int J) {
-  if (B < 1 || B > NS_MAX_B || K < 1 || J < 1) return -1;
-  sm90::DeviceInfo d;
-  if (sm90::device_info(&d) != cudaSuccess) return -1;
-  NapSmall p{};
-  p.B = B;
-  p.K = K;
-  p.J = J;
-  int grid = 0, smem = 0;
-  long long scratch = -1;
-  cudaError_t err;
-  switch (ns_rt(B)) {
-    case 1: err = small_shape<1>(&p, d, &grid, &smem, &scratch); break;
-    case 4: err = small_shape<4>(&p, d, &grid, &smem, &scratch); break;
-    default: err = small_shape<8>(&p, d, &grid, &smem, &scratch); break;
-  }
-  return err == cudaSuccess ? scratch : -1;
+// The even schedule's launch shape at p's (B, K, J) on device d: a block
+// an SM and the columns dealt out evenly over them.
+template <int R, int C>
+cudaError_t even_shape(NapEven* p, const sm90::DeviceInfo& d,
+                       SmallShape* shape) {
+  const int B = p->B, limit = d.smem_optin;
+  p->groups = std::min(p->J, d.sms);
+  const int w = (p->J + p->groups - 1) / p->groups;
+  p->rows = std::min(w, NE_LANES * C);
+  shape->smem = ne_smem_bytes(B, C);
+  // the rows' pass stages a partial a tile in the same shared memory
+  if (shape->smem > limit ||
+      1024 + 4 * ((p->J + NS_TILE - 1) / NS_TILE) > shape->smem)
+    return cudaErrorInvalidValue;
+  static cudaError_t attr =
+      sm90::allow_smem(nap_small_kernel_even<R, C>, limit);
+  if (attr != cudaSuccess) return attr;
+  int per_sm = 0;
+  cudaError_t err = sm90::resident_blocks(nap_small_kernel_even<R, C>,
+                                          d.dev, NE_BLOCK, shape->smem,
+                                          &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) return cudaErrorCooperativeLaunchTooLarge;
+  shape->grid = p->groups;
+  p->ldt = ns_ldxc(p->J);
+  shape->scratch = static_cast<long long>(B) * p->ldt;
+  shape->balance = static_cast<double>(w) * p->groups / p->J;
+  return cudaSuccess;
 }
 
-// Variant 4 on the current device: `scratch` holds small_scratch(B, K, J)
-// floats, 16-byte aligned: the centred rows, the stage totals (where K is
-// split), the tile partials.  RT, the rows of a
-// work item, grows with B (ns_rt).
+// Tensor map of V^T, (J, K) fp32 with row stride `ldv` floats, read in
+// boxes of 32 columns of K by `rows` rows in the 128-byte swizzle; reads
+// past J or K fill zeros.  Returns false where cuTensorMapEncodeTiled
+// refuses it.
+bool ne_map(CUtensorMap* map, const float* vt, int J, int K, int ldv,
+            int rows) {
+  sm90::EncodeTiledFn fn = sm90::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(J)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldv) * 4};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(vt),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int R, int C>
+cudaError_t even_launch(NapEven p, const float* vt, int ldv,
+                        const sm90::DeviceInfo& d, bool launch,
+                        cudaStream_t stream, SmallShape* shape) {
+  cudaError_t err = even_shape<R, C>(&p, d, shape);
+  if (err != cudaSuccess || !launch) return err;
+  CUtensorMap map_v;
+  if (!ne_map(&map_v, vt, p.J, p.K, ldv, p.rows))
+    return cudaErrorInvalidValue;
+  void* args[] = {&p, &map_v};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(nap_small_kernel_even<R, C>),
+      dim3(shape->grid), dim3(NE_BLOCK), args,
+      static_cast<size_t>(shape->smem), stream);
+}
+
+// Variant 4 on the current device: the even schedule or the tile kernel
+// (ns_even), the tiles from B and the block's columns.  Fills `shape`,
+// and if `launch` launches on `stream` with `scratch` (shape's floats,
+// 16-byte aligned: the outputs' t, or the centred rows, the stage totals
+// and the tile partials).
 cudaError_t nap_small(const float* x, int ldx, const float* vt, int ldv,
                       const float* mu, const float* std_mu,
                       const float* inv_std, float* scratch, float* out,
-                      int B, int K, int J, cudaStream_t stream) {
+                      int B, int K, int J, bool launch, cudaStream_t stream,
+                      SmallShape* shape) {
   if (B < 1 || B > NS_MAX_B || K < 1 || J < 1 || ldv % 4 != 0)
     return cudaErrorInvalidValue;
   sm90::DeviceInfo d;
   cudaError_t err = sm90::device_info(&d);
   if (err != cudaSuccess) return err;
+  if (ns_even(B, J, d.sms)) {
+    NapEven p{};
+    p.x = x;
+    p.mu = mu;
+    p.std_mu = std_mu;
+    p.inv_std = inv_std;
+    p.tv = scratch;
+    p.out = out;
+    p.ldx = ldx;
+    p.B = B;
+    p.K = K;
+    p.J = J;
+    const int groups = std::min(J, d.sms);
+    const int C = ne_c((J + groups - 1) / groups);
+    switch (ne_r(B) * 16 + C) {
+#define NE_CASE(R_, C_)   \
+  case R_ * 16 + C_:      \
+    return even_launch<R_, C_>(p, vt, ldv, d, launch, stream, shape);
+      NE_CASE(1, 4) NE_CASE(2, 4) NE_CASE(4, 4) NE_CASE(5, 4) NE_CASE(8, 4)
+      NE_CASE(1, 6) NE_CASE(2, 6) NE_CASE(4, 6) NE_CASE(5, 6) NE_CASE(8, 6)
+#undef NE_CASE
+      default: return cudaErrorInvalidValue;
+    }
+  }
   NapSmall p{};
   p.x = x;
   p.vt = vt;
@@ -733,10 +1163,17 @@ cudaError_t nap_small(const float* x, int ldx, const float* vt, int ldv,
   p.K = K;
   p.J = J;
   switch (ns_rt(B)) {
-    case 1: return small_launch<1>(p, d, stream);
-    case 4: return small_launch<4>(p, d, stream);
-    default: return small_launch<8>(p, d, stream);
+    case 1: return small_launch<1>(p, d, launch, stream, shape);
+    case 4: return small_launch<4>(p, d, launch, stream, shape);
+    default: return small_launch<8>(p, d, launch, stream, shape);
   }
+}
+
+// The launch shape of variant 4 at (B, K, J) on the current device, with
+// cudaSuccess, or the error that a launch would return.
+cudaError_t small_query(int B, int K, int J, SmallShape* shape) {
+  return nap_small(nullptr, K, nullptr, 4, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, B, K, J, false, nullptr, shape);
 }
 
 template <typename T>
@@ -819,10 +1256,12 @@ int nap_score(int variant, const float* x, int ldx, const void* vt, int ldv,
               void* xc, int ldxc, float* partial, float* out, int B, int K,
               int J, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 4)
+  if (variant == 4) {
+    SmallShape shape;
     return static_cast<int>(nap_small(x, ldx, static_cast<const float*>(vt),
                                       ldv, mu, std_mu, inv_std, partial, out,
-                                      B, K, J, s));
+                                      B, K, J, true, s, &shape));
+  }
   const int tj = nap_score_tile_j(variant);
   if (tj == 0) return static_cast<int>(cudaErrorInvalidValue);
   const NapOut p{std_mu, inv_std, partial, B, J};
@@ -843,31 +1282,38 @@ int nap_score(int variant, const float* x, int ldx, const void* vt, int ldv,
 }
 
 // Dynamic shared memory one block of `variant`'s tile product launches
-// with (variant 4: at B = 10); 0 if unknown.
+// with (variant 4: at the robot's tick, B = 10, K = J = 5482, on the
+// current device); 0 if unknown.
 int nap_score_smem_bytes(int variant) {
   switch (variant) {
     case 0: return NapNarrow::SMEM_BYTES;
     case 1: return NapWide::SMEM_BYTES;
     case 2: return NapNarrow16::SMEM_BYTES;
     case 3: return NapWide16::SMEM_BYTES;
-    // at the robot's B = 10, on the current device
     case 4: {
-      sm90::DeviceInfo d;
-      if (sm90::device_info(&d) != cudaSuccess) return 0;
-      int ch = 0, ring = 0;
-      ns_ring(10, d.smem_optin / 4, &ch, &ring);
-      return ns_smem_floats(10, ch, ring) * 4;
+      SmallShape shape;
+      return small_query(10, 5482, 5482, &shape) == cudaSuccess ? shape.smem
+                                                                : 0;
     }
     default: return 0;
   }
 }
 
 // Floats of scratch variant 4 takes at (B, K, J) on the current device
-// (the centred rows, the stage totals where it splits K, the tile
-// partials); -1 for
-// arguments it does not take or a failed device query.
+// (the outputs' t, or the centred rows, the stage totals where it splits
+// K and the tile partials); -1 for arguments it does not take or a failed
+// device query.
 long long nap_score_small_scratch(int B, int K, int J) {
-  return small_scratch(B, K, J);
+  SmallShape shape;
+  return small_query(B, K, J, &shape) == cudaSuccess ? shape.scratch : -1;
+}
+
+// Variant 4's partition at (B, K, J) on the current device: its busiest
+// block's columns x stages of V^T over the mean of its blocks; -1 where
+// nap_score_small_scratch is.
+double nap_score_small_balance(int B, int K, int J) {
+  SmallShape shape;
+  return small_query(B, K, J, &shape) == cudaSuccess ? shape.balance : -1;
 }
 
 const char* nap_score_error_string(int err) {

@@ -9,9 +9,11 @@ pallas_kernels.py, entry `nap_score_pallas`).  The CUDA source is
 header notes give the design and the bound on the H100.  `nap_score`
 launches it for CUDA tensors and takes `nap_score_plain` only for CPU
 tensors.  `nap_score.launches` counts the calls that launched the kernel,
-every variant included; `nap_score.small_launches` those of variant 4; a
-captured program (`utils/graphs.py`) adds what its capture counted at each
-replay.
+every variant included; `nap_score.small_launches` those of variant 4;
+`nap_score.balanced_launches` those of variant 4 whose partition gives no
+block more than `BALANCED` times the mean block's share of V^T (the
+library's `nap_score_small_balance`); a captured program
+(`utils/graphs.py`) adds what its capture counted at each replay.
 
 Each call picks one of five variants by type and batch (`variant_for`):
 fp32 on the CUDA cores or bf16 on the tensor cores, 64 x 64 tiles at small
@@ -20,13 +22,16 @@ centring launch, the tile product and a reduction launch; and variant 4,
 fp32 at B <= SMALL_MAX_B in one cooperative launch that centres, multiplies
 and reduces, bit-equal to variant 0.  Every fp32
 variant sums K in two levels, each 32-deep stage its own chain and the
-stage totals added in stage order; variant 4 spreads the stages of one
-output over threads and, where J is small, over blocks (its scratch then
-holds every stage total: `nap_score_small_scratch` in the source).  The
-kernel centres x first: an fp32 pack multiplies x - rot_mu; a bf16 pack
-rounds x to bf16, centres it in fp32 and multiplies both bf16 halves of the
-result, hi = bf16(xc) and lo = bf16(xc - hi), by the bf16 rotation with
-fp32 accumulation (see `nap_score_plain` and the source note).
+stage totals added in stage order.  Variant 4 at B <= 16, where J has
+32-column tiles for half the SMs or more, deals J's columns out evenly over
+the blocks in one round, each output's running total kept by one thread;
+else it takes whole tiles, and where J is small spreads K's stages over
+blocks too (its scratch then holds every stage total:
+`nap_score_small_scratch` in the source).  The kernel centres x first: an
+fp32 pack multiplies x - rot_mu; a bf16 pack rounds x to bf16, centres it
+in fp32 and multiplies both bf16 halves of the result, hi = bf16(xc) and
+lo = bf16(xc - hi), by the bf16 rotation with fp32 accumulation (see
+`nap_score_plain` and the source note).
 """
 
 from __future__ import annotations
@@ -60,6 +65,9 @@ WIDE_MIN_B = 1024
 SMALL_MAX_B = 32
 #: the most rows variant 4 takes (NS_MAX_B in the source)
 KERNEL_MAX_B = 64
+#: the busiest block's share of V^T over the mean that a variant-4 launch
+#: may reach and still count among `nap_score.balanced_launches`
+BALANCED = 1.05
 
 
 def variant_for(dtype: torch.dtype, b: int) -> int:
@@ -145,22 +153,27 @@ def _lib() -> ctypes.CDLL:
         lib.nap_score_error_string.restype = ctypes.c_char_p
         lib.nap_score_small_scratch.argtypes = [ctypes.c_int] * 3
         lib.nap_score_small_scratch.restype = ctypes.c_longlong
+        lib.nap_score_small_balance.argtypes = [ctypes.c_int] * 3
+        lib.nap_score_small_balance.restype = ctypes.c_double
         # the per-variant queries, asked once when the library loads
         lib.tile_j = {v: lib.nap_score_tile_j(v)
                       for v in (*VARIANTS.values(), SMALL_VARIANT)}
         lib.xc_cols = functools.lru_cache(maxsize=None)(lib.nap_score_xc_cols)
-        lib.small_scratch = functools.lru_cache(maxsize=None)(_small_scratch)
+        lib.small_shape = functools.lru_cache(maxsize=None)(_small_shape)
     return lib
 
 
-def _small_scratch(device: int, b: int, k: int, j: int) -> int:
-    """Floats of variant 4's scratch at (b, k, j) on CUDA device `device`:
-    its launch shape (and whether it splits K) follows the card's SMs."""
+def _small_shape(device: int, b: int, k: int, j: int):
+    """(floats of scratch, whether the partition is balanced) of variant 4
+    at (b, k, j) on CUDA device `device`: its launch shape (and whether it
+    splits K) follows the card's SMs."""
+    lib = _build.load("nap_score")
     with torch.cuda.device(device):
-        n = _build.load("nap_score").nap_score_small_scratch(b, k, j)
-    if n < 0:
+        n = lib.nap_score_small_scratch(b, k, j)
+        balance = lib.nap_score_small_balance(b, k, j)
+    if n < 0 or balance < 0:
         raise RuntimeError(f"nap_score variant 4 takes no ({b}, {k}, {j})")
-    return n
+    return n, balance <= BALANCED
 
 
 def nap_score(pack: NapPack, x: torch.Tensor,
@@ -196,9 +209,9 @@ def nap_score(pack: NapPack, x: torch.Tensor,
     lib = _lib()
     if variant == SMALL_VARIANT:
         # one allocation: the kernel's scratch at its (16-byte aligned)
-        # start (the centred rows, the stage totals where the launch splits
-        # K, the tile partials), then the scores
-        n = lib.small_scratch(x.device.index, b, pack.k, pack.j)
+        # start (the outputs' t, or the centred rows, the stage totals where
+        # the launch splits K and the tile partials), then the scores
+        n, balanced = lib.small_shape(x.device.index, b, pack.k, pack.j)
         buf = torch.empty(n + b, dtype=torch.float32, device=x.device)
         partial, out, xc, ldxc = buf[:n], buf[n:], None, 0
     else:
@@ -221,7 +234,8 @@ def nap_score(pack: NapPack, x: torch.Tensor,
     nap_score.launches += 1
     if variant == SMALL_VARIANT:
         nap_score.small_launches += 1
+        nap_score.balanced_launches += int(balanced)
     return out
 
 
-graphs.counted(nap_score, "launches", "small_launches")
+graphs.counted(nap_score, "launches", "small_launches", "balanced_launches")

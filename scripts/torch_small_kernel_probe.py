@@ -9,8 +9,9 @@ Builds a copy of `csrc/nap_score.cu` and `csrc/fused_mlp.cu` with
 of every block records %globaltimer at its entry, at every ring stage it
 starts, before and after every grid sync and at its exit, and drives
 variant 4 of each through the port's own wrappers (the stamped libraries
-stand in for the built ones): the NAP score at K = 5482, J = 400 and
-4096, and the canonical encoder (1728 -> ... -> 100, random BN stats),
+stand in for the built ones): the NAP score at K = 5482 and J = 400,
+3370, 4096 and 5482 (the split-K path, the hand camera's and the robot's
+ticks), and the canonical encoder (1728 -> ... -> 100, random BN stats),
 each at B = 1, 10 and 32, the L2 flushed before each call.  A one-thread
 kernel stamps the device clock just before each launch, with the host
 queued ahead behind a sleep, so the gap to the first block's entry is the
@@ -54,7 +55,7 @@ sys.path.insert(0, ROOT)
 
 PER_BLOCK = 2048
 BS = (1, 10, 32)
-NAP_K, NAP_J = 5482, (400, 4096)
+NAP_K, NAP_J = 5482, (400, 3370, 4096, 5482)
 
 
 def build_probe_libs() -> dict:

@@ -64,7 +64,7 @@ def test_a_replay_adds_what_its_capture_counted():
     # every kernel wrapper's counts are replayed
     assert {(fused_mlp_layer, "launches"), (fused_mlp_module, "launches"),
             (fused_mlp_module, "layers_run"), (nap_score, "launches"),
-            (nap_score, "small_launches"),
+            (nap_score, "small_launches"), (nap_score, "balanced_launches"),
             (int8_product, "launches")} <= set(graphs.COUNTERS)
 
 

@@ -219,17 +219,25 @@ def test_module_launch_refuses_what_the_kernel_does_not_take(models):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["fused_mlp_module", "nap_score"])
-def test_small_variants_equal_variant_0_on_the_card(models, kernel):
+@pytest.mark.parametrize("kernel, j", [
+    ("fused_mlp_module", None),
+    # the split-K path, one round with idle blocks (the hand camera's
+    # tick), one round nearly full, and the robot's tick
+    ("nap_score", 400), ("nap_score", 3370), ("nap_score", 4096),
+    ("nap_score", 5482)], ids=["fused_mlp_module", "nap_score-J400",
+                               "nap_score-J3370", "nap_score-J4096",
+                               "nap_score-J5482"])
+def test_small_variants_equal_variant_0_on_the_card(models, kernel, j):
     """On the card, each small-batch variant against variant 0 with
-    torch.equal at B in (1, 10, 33, 64)."""
+    torch.equal at B in (1, 10, 33, 64); the NAP score at K = 5482 and
+    each J of the parametrization."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: variant 4 is CUDA code with no "
                     "CPU path (chip_smoke.py runs this check on the card)")
     *_, model = models
     for b in (1, 10, 33, 64):
         if kernel == "nap_score":
-            _, stats = _stats(5482, 400, seed=b, floored=b % 2 == 1)
+            _, stats = _stats(5482, j, seed=b, floored=b % 2 == 1)
             pack = nap_pack(stats.to("cuda"))
             x = torch.from_numpy(_x(b, 5482, seed=b)).cuda()
             assert torch.equal(nap_score(pack, x, 4), nap_score(pack, x, 0))
@@ -242,3 +250,21 @@ def test_small_variants_equal_variant_0_on_the_card(models, kernel):
                 pack, x, lambda layer, h: fused_mlp_layer_pair(layer, h, 0))[0]
             for got, want in zip(fused_mlp_module(pack, x), ref):
                 assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_tick_shape_launch_counts_as_balanced_on_the_card():
+    """On the card, one variant-4 launch at the robot's tick shape (B = 10,
+    K = J = 5482) adds 1 to both `small_launches` and `balanced_launches`:
+    its partition gives no block more than `BALANCED` times the mean
+    block's share of V^T."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: variant 4 is CUDA code with no "
+                    "CPU path")
+    _, stats = _stats(5482, 5482, seed=3, floored=False)
+    pack = nap_pack(stats.to("cuda"))
+    x = torch.from_numpy(_x(10, 5482, seed=3)).cuda()
+    before = nap_score.small_launches, nap_score.balanced_launches
+    nap_score(pack, x)
+    assert (nap_score.small_launches - before[0],
+            nap_score.balanced_launches - before[1]) == (1, 1)
